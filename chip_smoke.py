@@ -4,32 +4,49 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. the card: `nvidia-smi` name and power limit, torch's device name and count;
-2. builds: csrc/walk.cu with nvcc (sm_90a; the ptxas report is printed) and
-   native/fastwriter.cpp with g++, started together;
+2. builds: csrc/walk.cu and csrc/gather.cu with nvcc (sm_90a, one nvcc per
+   source; the ptxas reports are printed) and native/fastwriter.cpp with g++,
+   all started together;
 3. kernels from the bench configuration's tables (mean read 8,000, sd
-   2,200, 2,000 KDE points), on the main path's first batch: the aligned walk
-   at B=2,048 with the lean event budget (1,120) and at the overflow rescue's
-   B=64 with the full budget, the unaligned walk at B=2,048 with its own
-   budget; and both again at B=8,192 (the aligned walk with both budgets).
-   Each kernel must equal its plain PyTorch version on the card on every
-   output; then each is timed with CUDA events beside the plain version and
-   its bound;
+   2,200, 2,000 KDE points).  The walks on the main path's first batch: the
+   aligned walk at B=2,048 with the lean event budget (1,120) and at the
+   overflow rescue's B=64 with the full budget, the unaligned walk at
+   B=2,048 with its own budget; and both again at B=8,192.  The packed-code
+   gather (K3) on the inputs the circular path's first read-emitting batch
+   gives it (B=2,048, L=19,456, 4,480 packed bytes per lane) and at a ragged
+   shape (B=37, L=3,000).  Each kernel must equal its plain PyTorch version
+   on the card on every output; then each is timed with CUDA events beside
+   the plain version, its bound and (K3) one torch.gather of the same bytes;
 4. the CUDA path against the CPU path of the same program at a small size:
    byte-identical FASTQ and error-profile files (the CPU path is held
-   byte-identical to the JAX package by the test suite);
+   byte-identical to the JAX package by the test suite), for linear DNA on
+   the host-reconstruction route, circular DNA, and linear DNA with
+   NANOSIM_TPU_RECON=0;
 5. the main path: `simulate_genome(device="cuda")` at the bench's size (48 Mb
    genome in 4 chromosomes, 20,000 reads, batch 2,048, FASTQ).  The kernels'
    launch counters are zeroed just before and read just after; both walks
    must have launched, no lane may have needed the checksum fallback, the
    read counts must match, the first 200 error-profile records' ref_base
    must match the genome at pos + Seq_pos, and a second run with the same
-   seed must give byte-identical files.
+   seed must give byte-identical files;
+6. the circular path at full width: one circular chromosome of 4,641,652 bp
+   (the size of E. coli K-12 MG1655; random bases with ambiguity codes from
+   the fixture writer), 10,000 reads, batch 2,048, FASTQ.  The counters are
+   zeroed just before and read just after; K1, K2 and K3 must have launched,
+   with 0 checksum-fallback lanes, matching record counts, ref_base checked
+   on 200 records and on every record that wraps the origin, and a traced
+   same-seed rerun that is byte-identical;
+7. NANOSIM_TPU_RECON=0 at full width: 4,000 reads on the 48 Mb genome; the
+   files must equal a host-reconstruction run of the same seed and size (the
+   on-card oracle for K3 and the fused read).
 
-The line before the last is the kernels' JSON record, at the main path's
-lean shapes, with the launches of the main path's run; the line before it
-holds the other shapes.  The last line is {"ok": true, "device": {...}}.
+The line before the last is the kernels' JSON record (the walks at the main
+path's lean shapes with the main path's launches, K3 at the circular path's
+shape with the circular path's launches); the line before it holds the other
+shapes.  The last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import hashlib
 import json
 import os
@@ -38,6 +55,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -46,6 +64,9 @@ N_READS = 20000
 BATCH = 2048
 GENOME_MB = 48
 KERNEL_B = 8192
+CIRC_LEN = 4641652  # E. coli K-12 MG1655 (NCBI NC_000913.3)
+N_CIRC = 10000
+N_RECON0 = 4000
 TIMED_LAUNCHES = 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # Instruction rates: the 67 TFLOP/s float32 peak counts a fused multiply-add
@@ -94,7 +115,7 @@ def phase_card():
 
 def phase_build():
     from nanosim_tpu_torch.io import native
-    from nanosim_tpu_torch.ops import walk_cuda
+    from nanosim_tpu_torch.ops import gather_cuda, walk_cuda
 
     errors = []
 
@@ -105,8 +126,8 @@ def phase_build():
             errors.append(e)
 
     t0 = time.time()
-    threads = [threading.Thread(target=run, args=(walk_cuda.build,)),
-               threading.Thread(target=run, args=(native.get_lib,))]
+    threads = [threading.Thread(target=run, args=(fn,))
+               for fn in (walk_cuda.LIBRARY.load, gather_cuda.LIBRARY.load, native.get_lib)]
     for t in threads:
         t.start()
     for t in threads:
@@ -116,8 +137,9 @@ def phase_build():
     if native.get_lib() is None:
         fail("native/fastwriter.cpp did not build")
     print(f"builds done in {time.time() - t0:.1f}s", flush=True)
-    print("nvcc -Xptxas -v:\n" + (walk_cuda.build_log.strip() or "(library was already built)"),
-          flush=True)
+    for lib in (walk_cuda.LIBRARY, gather_cuda.LIBRARY):
+        print(f"nvcc -Xptxas -v ({os.path.basename(lib.src)}):\n"
+              + (lib.build_log.strip() or "(library was already built)"), flush=True)
 
 
 def make_fixture(d: str, genome_mb: float, mean_len: float, sd_len: float, n_kde: int):
@@ -292,119 +314,322 @@ def phase_kernels(prefix: str, ref: str):
     return results
 
 
-def _run_sim(ref, prefix, out, n, batch, fastq, device, seed=SEED):
+def _ragged_gather_inputs(B: int, PB: int, L: int, seed: int):
+    """Packed rows and near-contiguous source indices (output position plus
+    a random walk of indel drift, a few out of the row), from numpy."""
+    import numpy as np
+    import torch
+
+    rs = np.random.default_rng(seed)
+    packed = rs.integers(0, 256, (B, PB), dtype=np.uint8)
+    drift = np.cumsum(rs.integers(-1, 2, (B, L)), axis=1)
+    src = rs.integers(-8, 64, (B, 1)) + np.arange(L)[None, :] + drift
+    src[:, :3] = [-5, 4 * PB + 7, 4 * PB - 1]
+    return (torch.from_numpy(packed).cuda(), torch.from_numpy(src.astype(np.int32)).cuda())
+
+
+def phase_gather(prefix: str, circ_ref: str):
+    """K3 against its plain version, timed beside its bound and one
+    torch.gather of the same bytes: on the inputs the circular path's first
+    read-emitting batch gives it (the record), and at a ragged shape."""
+    import torch
+
+    from nanosim_tpu_torch.io.genome import PackedGenome
+    from nanosim_tpu_torch.ops import apply_errors, gather_cuda, rng
+    from nanosim_tpu_torch.profiles import profile
+    from nanosim_tpu_torch.sim.genome_mode import GenomeSimulator
+
+    dev = torch.device("cuda")
+    genome = PackedGenome.from_fasta(circ_ref, dna_type="circular")
+    prof = profile.load_profile(prefix, mode="genome", fastq=True)
+    sim = GenomeSimulator(genome, prof, fastq=True, circular_dna=True, batch=BATCH, device=dev)
+    captured = []
+
+    def capture(packed, src):
+        captured.append((packed, src))
+        return gather_cuda.gather_codes(packed, src)
+
+    # slots 0.. with the run's seed are the circular path's first batch; the
+    # fused read reaches the kernel through apply_errors.gather_cuda
+    apply_errors.gather_cuda = types.SimpleNamespace(gather_codes=capture)
+    try:
+        sim.batch_fn()(rng.base_key(SEED, rng.STREAM_ALIGNED, device=dev),
+                       torch.arange(BATCH, dtype=torch.int64, device=dev))
+    finally:
+        apply_errors.gather_cuda = gather_cuda
+    if len(captured) != 1:
+        fail(f"the read-emitting batch called the gather {len(captured)} times, not once")
+    cases = [("record", *captured[0]), ("", *_ragged_gather_inputs(37, 770, 3000, 2))]
+    results = []
+    for role, packed, src in cases:
+        B, L = src.shape
+        PB = packed.shape[1]
+        got = gather_cuda.gather_codes(packed, src)
+        want = gather_cuda.gather_codes_plain(packed, src)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"gather_codes B={B} L={L}: kernel output {tuple(got.shape)} {got.dtype} "
+                 f"!= plain {tuple(want.shape)} {want.dtype}")
+        max_err = int((got.int() - want.int()).abs().max())
+        if max_err != 0:
+            fail(f"gather_codes B={B} L={L}: kernel differs from its plain version "
+                 f"(max abs err {max_err})")
+        # each index read once (4 B), each packed row once, each code written once
+        bound, bound_by = _bound_ms(4 * B * L + B * PB + B * L, 0, 0)
+        ms = _time_ms(lambda: gather_cuda.gather_codes(packed, src), TIMED_LAUNCHES)
+        plain_ms = _time_ms(lambda: gather_cuda.gather_codes_plain(packed, src), TIMED_LAUNCHES)
+        # the library yardstick: one torch.gather of the packed bytes (its
+        # int64 index is made outside the timed call)
+        idx = (src >> 2).clamp(0, PB - 1).long()
+        library_ms = _time_ms(lambda: torch.gather(packed, 1, idx), TIMED_LAUNCHES)
+        results.append({
+            "name": "gather_codes", "route": "cuda", "source": "nanosim_tpu_torch/csrc/gather.cu",
+            "replaces": "nanosim_tpu/ops/window_gather.py:115", "B": B, "L": L, "PB": PB,
+            "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms, "role": role,
+        })
+        print(f"kernel gather_codes: B={B} L={L} PB={PB} exact; {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms, bound {bound:.4f} ms by "
+              f"{bound_by}, {ms / bound:.1f}x the bound)", flush=True)
+    return results
+
+
+def _run_sim(ref, prefix, out, n, batch, fastq, device, seed=SEED, dna_type="linear"):
     from nanosim_tpu_torch.sim.run import simulate_genome
 
     return simulate_genome(ref, prefix, out, n, fastq=fastq, seed=seed, batch=batch,
-                           device=device)
+                           device=device, dna_type=dna_type)
+
+
+FILES = ("_aligned_reads.fastq", "_aligned_error_profile", "_unaligned_reads.fastq")
+
+
+@contextlib.contextmanager
+def recon_env(value):
+    """NANOSIM_TPU_RECON set to `value` (None: unset) inside the block."""
+    old = os.environ.get("NANOSIM_TPU_RECON")
+    if value is None:
+        os.environ.pop("NANOSIM_TPU_RECON", None)
+    else:
+        os.environ["NANOSIM_TPU_RECON"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("NANOSIM_TPU_RECON", None)
+        else:
+            os.environ["NANOSIM_TPU_RECON"] = old
 
 
 def phase_cuda_vs_cpu(d: str):
+    from nanosim_tpu_torch.profiles import fixtures
+
     prefix, ref = make_fixture(os.path.join(d, "small"), 0.4, 700, 250, 300)
-    outs = {}
-    for dev in ("cpu", "cuda"):
-        out = os.path.join(d, "small", dev)
-        _run_sim(ref, prefix, out, 400, 64, True, dev)
-        outs[dev] = [sha(out + s) for s in ("_aligned_reads.fastq",
-                                            "_aligned_error_profile",
-                                            "_unaligned_reads.fastq")]
-    if outs["cpu"] != outs["cuda"]:
-        fail(f"CUDA output differs from the CPU output: {outs}")
-    print("small run: CUDA files byte-identical to the CPU path", flush=True)
+    circ = os.path.join(d, "small", "circ.fa")
+    fixtures.make_reference_fasta(circ, [200000], seed=12, with_iupac=True)
+    for label, r, dna, recon in (("linear", ref, "linear", None),
+                                 ("circular", circ, "circular", None),
+                                 ("linear NANOSIM_TPU_RECON=0", ref, "linear", "0")):
+        outs = {}
+        with recon_env(recon):
+            for dev in ("cpu", "cuda"):
+                out = os.path.join(d, "small", f"{dna}{recon or ''}_{dev}")
+                _run_sim(r, prefix, out, 400, 64, True, dev, dna_type=dna)
+                outs[dev] = [sha(out + s) for s in FILES]
+        if outs["cpu"] != outs["cuda"]:
+            fail(f"small {label} run: CUDA output differs from the CPU output: {outs}")
+        print(f"small {label} run: CUDA files byte-identical to the CPU path", flush=True)
 
 
-def check_error_profile(path: str, ref: str, n_records: int = 200):
-    from nanosim_tpu_torch.io.genome import PackedGenome
+def read_names(path: str) -> list:
+    """The record names of a FASTQ file (its format checked on the way)."""
+    names = []
+    with open(path, "rb") as f:
+        for i, line in enumerate(f):
+            if i % 4 == 0:
+                if not line.startswith(b"@"):
+                    fail(f"{path}: malformed FASTQ at line {i + 1}")
+                names.append(line[1:].rstrip(b"\n").decode())
+    return names
 
-    g = PackedGenome.from_fasta(ref)
+
+def crossing_reads(names, genome_len: int) -> list:
+    """Aligned reads whose reference span passes the origin of a circular
+    chromosome (`<chrom>_<pos>_aligned_<idx>_<F|R>_<head>_<middle>_<tail>`)."""
+    out = []
+    for nm in names:
+        pos = int(nm.split("_aligned_")[0].rsplit("_", 1)[1])
+        if pos + int(nm.split("_")[-2]) > genome_len:
+            out.append(nm)
+    return out
+
+
+def check_error_profile(path: str, g, n_records: int = 200, crossing=()):
+    """ref_base must equal the genome at pos + Seq_pos (wrapping at the
+    origin of a circular chromosome) on the first n_records records and on
+    every record of the reads in `crossing`.  Returns the number of checked
+    records that wrap the origin."""
+    import mmap
+
     idx = g.name_index()
+    wraps = 0
+
+    def check(line: str):
+        nonlocal wraps
+        name, seq_pos, etype, elen, ref_base, _ = line.rstrip("\n").split("\t")
+        if etype == "ins":
+            if ref_base != "-" * int(elen):
+                fail(f"insertion with ref bases: {line!r}")
+            return
+        chrom, pos = name.split("_aligned_")[0].rsplit("_", 1)
+        c = idx[chrom]
+        ln = int(g.lengths[c])
+        start = int(pos) + int(seq_pos)
+        if g.slice(c, start % ln, int(elen)).tobytes().decode() != ref_base:
+            fail(f"ref_base does not match the genome: {line!r}")
+        wraps += start + int(elen) > ln
+
     checked = 0
     with open(path) as f:
         header = f.readline()
         if not header.startswith("Seq_name"):
             fail("error profile has no header")
         for line in f:
-            name, seq_pos, etype, elen, ref_base, _ = line.rstrip("\n").split("\t")
-            if etype == "ins":
-                if ref_base != "-" * int(elen):
-                    fail(f"insertion with ref bases: {line!r}")
-            else:
-                chrom_pos = name.split("_aligned_")[0]
-                chrom, pos = chrom_pos.rsplit("_", 1)
-                c = idx[chrom]
-                start = int(pos) + int(seq_pos)
-                want = g.flat[g.offsets[c] + start: g.offsets[c] + start + int(elen)]
-                if want.tobytes().decode() != ref_base:
-                    fail(f"ref_base does not match the genome: {line!r}")
+            check(line)
             checked += 1
             if checked >= n_records:
                 break
     if checked < n_records:
         fail(f"only {checked} error-profile records")
+    # the crossing reads' records, found in one forward pass (records are
+    # written per read in read order)
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        at = 0
+        for nm in crossing:
+            key = b"\n" + nm.encode() + b"\t"
+            found = mm.find(key, at)
+            if found < 0:  # a read without logged errors
+                continue
+            at = found + 1
+            while mm[at : at + len(key) - 1] == key[1:]:
+                end = mm.find(b"\n", at)
+                check(mm[at:end].decode())
+                at = end + 1
+    return wraps
 
 
-def count_records(path: str) -> int:
-    n = 0
-    with open(path, "rb") as f:
-        for i, line in enumerate(f):
-            if i % 4 == 0:
-                if not line.startswith(b"@"):
-                    fail(f"{path}: malformed FASTQ at line {i + 1}")
-                n += 1
-    return n
-
-
-def phase_main(d: str, prefix: str, ref: str, card: str):
-    import torch
-
-    from nanosim_tpu_torch.ops import walk_cuda
+def zero_counters():
+    from nanosim_tpu_torch.ops import gather_cuda, walk_cuda
     from nanosim_tpu_torch.sim import output
 
-    out1 = os.path.join(d, "run1", "sim")
-    os.makedirs(os.path.dirname(out1))
     output.RUN_STATS.reset()
     walk_cuda.aligned_steps.launches = 0
     walk_cuda.aligned_steps.launches_by_budget = {}
     walk_cuda.unaligned_steps.launches = 0
+    gather_cuda.gather_codes.launches = 0
+
+
+def read_counters() -> dict:
+    from nanosim_tpu_torch.ops import gather_cuda, walk_cuda
+    from nanosim_tpu_torch.sim import output
+
+    return {"aligned": walk_cuda.aligned_steps.launches,
+            "aligned_by_budget": dict(walk_cuda.aligned_steps.launches_by_budget),
+            "unaligned": walk_cuda.unaligned_steps.launches,
+            "gather": gather_cuda.gather_codes.launches,
+            "overflow_rescue_lanes": output.RUN_STATS.overflow_rescue_lanes,
+            "checksum_fallback_lanes": output.RUN_STATS.checksum_fallback_lanes}
+
+
+def phase_path(label: str, d: str, prefix: str, ref: str, n: int, card: str,
+               dna_type: str, kernels):
+    """Drive one path through `simulate_genome(device="cuda")` with the
+    counters zeroed just before and read just after; every kernel in
+    `kernels` must have launched, no lane may have needed the checksum
+    fallback, the record counts must match, ref_base must match the genome,
+    and a traced same-seed rerun must give the same bytes."""
+    import torch
+
+    from nanosim_tpu_torch.io.genome import PackedGenome
+
+    out1 = os.path.join(d, label, "run1", "sim")
+    os.makedirs(os.path.dirname(out1))
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.time()
-    counts = _run_sim(ref, prefix, out1, N_READS, BATCH, True, "cuda")
+    counts = _run_sim(ref, prefix, out1, n, BATCH, True, "cuda", dna_type=dna_type)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = {"aligned": walk_cuda.aligned_steps.launches,
-                "aligned_by_budget": dict(walk_cuda.aligned_steps.launches_by_budget),
-                "unaligned": walk_cuda.unaligned_steps.launches}
-    stats = (output.RUN_STATS.overflow_rescue_lanes, output.RUN_STATS.checksum_fallback_lanes)
-    print(f"main path: {counts} in {dt:.2f}s -> {N_READS / dt:.1f} reads/s on {card}; "
-          f"launches {launches}; overflow_rescue_lanes={stats[0]} "
-          f"checksum_fallback_lanes={stats[1]}", flush=True)
-    if launches["aligned"] == 0 or launches["unaligned"] == 0:
-        fail(f"a walk kernel was not launched on the main path: {launches}")
-    if stats[1] != 0:
-        fail(f"{stats[1]} lanes failed the host replay's checksum")
-    na = count_records(out1 + "_aligned_reads.fastq")
-    nu = count_records(out1 + "_unaligned_reads.fastq")
-    if (na, nu) != (counts["aligned"], counts["unaligned"]):
-        fail(f"read counts {(na, nu)} != requested {counts}")
-    check_error_profile(out1 + "_aligned_error_profile", ref)
+    launches = read_counters()
+    print(f"{label} path: {counts} in {dt:.2f}s -> {n / dt:.1f} reads/s on {card}; "
+          f"launches {launches}", flush=True)
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        fail(f"{missing} kernels were not launched on the {label} path: {launches}")
+    if launches["checksum_fallback_lanes"] != 0:
+        fail(f"{launches['checksum_fallback_lanes']} lanes failed the host replay's checksum")
+    names = read_names(out1 + "_aligned_reads.fastq")
+    nu = len(read_names(out1 + "_unaligned_reads.fastq"))
+    if (len(names), nu) != (counts["aligned"], counts["unaligned"]):
+        fail(f"read counts {(len(names), nu)} != requested {counts}")
+    g = PackedGenome.from_fasta(ref, dna_type=dna_type)
+    crossing = crossing_reads(names, g.total_len) if dna_type == "circular" else []
+    wraps = check_error_profile(out1 + "_aligned_error_profile", g, crossing=crossing)
+    print(f"{label} path: ref_base checked; {len(crossing)} reads cross the origin, "
+          f"{wraps} checked records wrap it", flush=True)
+    if dna_type == "circular" and wraps == 0:
+        fail("no error-profile record wrapping the origin was checked")
 
     # the second run is traced (CUDA activity only) for the device's busy
     # share; its rate includes the tracer's cost
-    out2 = os.path.join(d, "run2", "sim")
+    out2 = os.path.join(d, label, "run2", "sim")
     os.makedirs(os.path.dirname(out2))
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _run_sim(ref, prefix, out2, N_READS, BATCH, True, "cuda")
+        _run_sim(ref, prefix, out2, n, BATCH, True, "cuda", dna_type=dna_type)
         torch.cuda.synchronize()
     dt2 = time.time() - t0
-    for s in ("_aligned_reads.fastq", "_aligned_error_profile", "_unaligned_reads.fastq"):
+    for s in FILES:
         if sha(out1 + s) != sha(out2 + s):
-            fail(f"second run with the same seed differs in {s}")
-    print(f"second run byte-identical ({N_READS / dt2:.1f} reads/s, traced)", flush=True)
+            fail(f"{label} path: second run with the same seed differs in {s}")
+    print(f"{label} path: second run byte-identical ({n / dt2:.1f} reads/s, traced)",
+          flush=True)
     report_trace(prof, dt2)
-    return launches, N_READS / dt, N_READS / dt2
+    return launches, n / dt, n / dt2
+
+
+def phase_recon0(d: str, prefix: str, ref: str, card: str):
+    """NANOSIM_TPU_RECON=0 at full width: the read-emitting program's files
+    must equal the host reconstruction's for the same seed and size."""
+    import torch
+
+    outs, launches = {}, None
+    for recon in ("0", None):
+        out = os.path.join(d, f"recon{recon or ''}", "sim")
+        os.makedirs(os.path.dirname(out))
+        zero_counters()
+        with recon_env(recon):
+            t0 = time.time()
+            _run_sim(ref, prefix, out, N_RECON0, BATCH, True, "cuda")
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        got = read_counters()
+        if got["checksum_fallback_lanes"] != 0:
+            fail(f"{got['checksum_fallback_lanes']} lanes failed the host replay's checksum")
+        if recon == "0":
+            launches = got
+            if got["gather"] == 0 or got["aligned"] == 0 or got["unaligned"] == 0:
+                fail(f"a kernel was not launched with NANOSIM_TPU_RECON=0: {got}")
+        print(f"NANOSIM_TPU_RECON={recon or 'unset'}: {N_RECON0} reads in {dt:.2f}s -> "
+              f"{N_RECON0 / dt:.1f} reads/s on {card}; launches {got}", flush=True)
+        outs[recon] = [sha(out + s) for s in FILES]
+    if outs["0"] != outs[None]:
+        fail(f"NANOSIM_TPU_RECON=0 files differ from the host reconstruction's: {outs}")
+    print("NANOSIM_TPU_RECON=0: files byte-identical to the host-reconstruction route",
+          flush=True)
+    return launches
 
 
 def report_trace(prof, wall_s: float):
@@ -433,22 +658,35 @@ def main():
     sys.path.insert(0, REPO)
     card, kind, count = phase_card()
     phase_build()
+    from nanosim_tpu_torch.profiles import fixtures
+
     tmp_root = "/dev/shm" if os.path.isdir("/dev/shm") else None
     with tempfile.TemporaryDirectory(dir=tmp_root) as d:
         t0 = time.time()
         prefix, ref = make_fixture(os.path.join(d, "bench"), GENOME_MB, 8000, 2200, 2000)
-        print(f"fixture ({GENOME_MB} Mb genome) in {time.time() - t0:.1f}s", flush=True)
-        cases = phase_kernels(prefix, ref)
+        circ_ref = os.path.join(d, "bench", "circ.fa")
+        fixtures.make_reference_fasta(circ_ref, [CIRC_LEN], seed=13, with_iupac=True)
+        print(f"fixture ({GENOME_MB} Mb genome, {CIRC_LEN} bp circular chromosome) in "
+              f"{time.time() - t0:.1f}s", flush=True)
+        cases = phase_kernels(prefix, ref) + phase_gather(prefix, circ_ref)
         phase_cuda_vs_cpu(d)
-        launches, rate1, rate2 = phase_main(d, prefix, ref, card)
+        main_l, rate1, rate2 = phase_path("main", d, prefix, ref, N_READS, card, "linear",
+                                          ("aligned", "unaligned"))
+        circ_l, crate1, crate2 = phase_path("circular", d, prefix, circ_ref, N_CIRC, card,
+                                            "circular", ("aligned", "unaligned", "gather"))
+        recon0_l = phase_recon0(d, prefix, ref, card)
     for k in cases:
         if not k["role"]:
             continue
         if k["name"] == "unaligned_walk":
-            k["launches"] = launches["unaligned"]
-        else:
-            k["launches"] = launches["aligned_by_budget"].get(k["E"], 0)
-    print(f"main path reads/s: {rate1:.1f}, {rate2:.1f} ({card})", flush=True)
+            k["launches"] = main_l["unaligned"]
+        elif k["name"] == "aligned_walk":
+            k["launches"] = main_l["aligned_by_budget"].get(k["E"], 0)
+        else:  # K3: this slice's path, and the NANOSIM_TPU_RECON=0 run beside it
+            k["launches"] = circ_l["gather"]
+            k["launches_recon0"] = recon0_l["gather"]
+    print(f"main path reads/s: {rate1:.1f}, {rate2:.1f} traced; circular path reads/s: "
+          f"{crate1:.1f}, {crate2:.1f} traced ({card})", flush=True)
     print(json.dumps({"kernel_cases": [k for k in cases if k["role"] != "record"]}))
     print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
                                   for k in cases if k["role"] == "record"]}))

@@ -2,10 +2,10 @@
 `simulator.py`) argparse surface: the genome sub-command with the same flags,
 defaults and validation messages.  The PyTorch package runs it on the card.
 
-Ported so far: linear DNA, KDE read lengths, FASTA/FASTQ with the error
-profile, `--resume`.  The transcriptome and metagenome sub-commands, and the
-genome options not ported yet (-hp, --perfect, --chimeric, circular DNA,
--med/-sd, -x, multi-host), say so and exit non-zero.
+Ported so far: linear and circular DNA (`-dna_type circular`), KDE read
+lengths, FASTA/FASTQ with the error profile, `--resume`.  The transcriptome
+and metagenome sub-commands, and the genome options not ported yet (-hp,
+--perfect, --chimeric, -med/-sd, -x, multi-host), say so and exit non-zero.
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def main(argv=None):
         print("\nPerfect reads cannot be chimeric\n")
         sys.exit(1)
     for flag, what in ((args.homopolymer, "-hp"), (args.perfect, "--perfect"),
-                       (args.chimeric, "--chimeric"), (args.dna_type == "circular", "circular DNA"),
+                       (args.chimeric, "--chimeric"),
                        (median is not None, "-med/-sd"), (args.coverage is not None, "-x"),
                        (args.num_hosts > 1, "--num_hosts")):
         if flag:
@@ -135,6 +135,7 @@ def main(argv=None):
         args.number,
         fastq=args.fastq,
         strandness=args.strandness,
+        dna_type=args.dna_type,
         min_len=args.min_len,
         max_len=args.max_len,
         seed=seed,

@@ -50,7 +50,7 @@ def get_lib():
         _tried = True
         if _build():
             lib = ctypes.CDLL(_LIB)
-            for name in ("replay_walk_batch", "emit_batch_recon",
+            for name in ("replay_walk_batch", "emit_batch_recon", "emit_batch_flat",
                          "replay_unaligned_walk_batch", "emit_batch_recon_unaligned"):
                 getattr(lib, name).restype = ctypes.c_int64
             _lib = lib
@@ -211,6 +211,101 @@ class NativeEmitter:
     @property
     def available(self) -> bool:
         return self.lib is not None
+
+    def emit_flat(
+        self,
+        cb,  # sim.compact.CompactBatch with reads (2-bit flat reads)
+        lanes: np.ndarray,  # [k] int64 lane indices, emission order
+        names: list,  # k strings
+        g_off: np.ndarray,  # [k]
+        g_len: np.ndarray,
+        g_circ: np.ndarray,  # [k] uint8: the error log's ref bases wrap
+        genome_flat: np.ndarray,
+        fastq: bool,
+        write_errors: bool,
+        n_threads: int = 0,
+    ):
+        """Format a compacted batch (2-bit flat reads, FASTQ qualities, packed
+        u32 events for the error log).
+
+        Returns (fastx_mv, err_mv) memoryviews into internal buffers — valid
+        until the next emit call on this emitter.
+        """
+        k = len(lanes)
+        names_packed, name_off, _ = self._pack_names(names)
+        lanes = np.ascontiguousarray(lanes, np.int64)
+
+        total = np.ascontiguousarray(cb.total[lanes], np.int64)
+        head = np.ascontiguousarray(cb.head[lanes], np.int64)
+        l_new = np.ascontiguousarray(cb.l_new[lanes], np.int64)
+        rev = np.ascontiguousarray(cb.rev[lanes], np.uint8)
+        n_ev = np.ascontiguousarray(cb.n_events[lanes] if write_errors else np.zeros(k),
+                                    np.int64)
+        read_off = np.ascontiguousarray(cb.read_off[lanes], np.int64)
+        ev_off = np.ascontiguousarray(cb.ev_off[lanes], np.int64)
+        qual_off = np.ascontiguousarray(cb.qual_off[lanes], np.int64)
+        start_pos = np.ascontiguousarray(cb.pos[lanes], np.int64)
+
+        name_lens = np.diff(name_off)
+        # exact upper-bound output offsets: ranges of reads format
+        # independently in parallel, then compact
+        ubf = np.zeros(k + 1, np.int64)
+        ubf[1:] = np.cumsum(name_lens + total * (2 if fastq else 1) + 12)
+        ube = np.zeros(k + 1, np.int64)
+        if write_errors:
+            # per-event: name + key(<=20) + type(3) + len(<=20) + 2*len + seps
+            used = int((ev_off + n_ev).max()) if k else 0
+            lens = ((cb.ev_flat[:used] >> np.uint32(17)) & np.uint32(0x1FFF)).astype(np.int64)
+            csum = np.zeros(used + 1, np.int64)
+            np.cumsum(lens, out=csum[1:])
+            ev_len_sum = csum[ev_off + n_ev] - csum[ev_off]
+            ube[1:] = np.cumsum(n_ev * (name_lens + 52) + 2 * ev_len_sum)
+
+        if self._fastx_buf.size < ubf[k]:
+            self._fastx_buf = np.empty(int(ubf[k] * 1.3) + 64, np.uint8)
+        if self._err_buf.size < ube[k] + 64:
+            self._err_buf = np.empty(int(ube[k] * 1.3) + 64, np.uint8)
+        if n_threads <= 0:
+            n_threads = min(4, os.cpu_count() or 1)
+
+        fw = ctypes.c_int64(0)
+        ew = ctypes.c_int64(0)
+        rc = self.lib.emit_batch_flat(
+            _ptr(np.ascontiguousarray(cb.reads_flat), ctypes.c_uint8),
+            _ptr(read_off, ctypes.c_int64),
+            _ptr(np.ascontiguousarray(cb.quals_flat), ctypes.c_uint8),
+            _ptr(qual_off, ctypes.c_int64),
+            ctypes.c_int64(k),
+            names_packed.ctypes.data_as(ctypes.c_char_p),
+            _ptr(name_off, ctypes.c_int64),
+            _ptr(total, ctypes.c_int64),
+            _ptr(head, ctypes.c_int64),
+            _ptr(l_new, ctypes.c_int64),
+            _ptr(rev, ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(cb.ev_flat), ctypes.c_uint32),
+            _ptr(ev_off, ctypes.c_int64),
+            _ptr(n_ev, ctypes.c_int64),
+            _ptr(genome_flat, ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(g_off, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(g_len, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(g_circ, np.uint8), ctypes.c_uint8),
+            _ptr(start_pos, ctypes.c_int64),
+            _ptr(ubf, ctypes.c_int64),
+            _ptr(ube, ctypes.c_int64),
+            _ptr(self._fastx_buf, ctypes.c_char),
+            ctypes.byref(fw),
+            _ptr(self._err_buf, ctypes.c_char),
+            ctypes.byref(ew),
+            ctypes.c_int32(1 if fastq else 0),
+            ctypes.c_int32(1 if write_errors else 0),
+            ctypes.c_int32(n_threads),
+        )
+        if rc != 0:
+            raise RuntimeError(f"emit_batch_flat failed rc={rc}")
+        return (
+            memoryview(self._fastx_buf)[: fw.value],
+            memoryview(self._err_buf)[: ew.value],
+        )
 
     def emit_recon(
         self,

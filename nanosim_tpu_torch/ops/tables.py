@@ -319,9 +319,9 @@ class QualDevice:
     """Exact breakpoint table for truncated log-normal base qualities.
 
     Class order: 0=match, 1=mis, 2=ins, 3=ht, 4=unmapped
-    (model_base_qualities.py:120-130; truncation to [1, 93]).  The host
-    reconstruction samples it (the device programs of this package never
-    materialize qualities).
+    (model_base_qualities.py:120-130; truncation to [1, 93]).  The
+    read-emitting programs sample it on the device; the host reconstruction
+    samples the same table.
     """
 
     breaks: torch.Tensor  # [5, K] f32, row-sorted, sentinel 0.0 first, pad 2.0
@@ -334,3 +334,21 @@ class QualDevice:
         br, vl = build_qual_breakpoints(params, cls.CLASSES)
         return cls(breaks=torch.as_tensor(br, device=device),
                    vals=torch.as_tensor(vl, device=device))
+
+    def sample(self, qclass: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """[..] class indices + uniforms -> int32 qualities in [1, 93].
+
+        count(breaks[c] <= u) per class via searchsorted (right=True), row
+        select arithmetically, then one flat value gather.  The 0.0 sentinel
+        guarantees count >= 1; padding 2.0 caps it at the row's entry count,
+        so no clamping is needed.
+        """
+        C, K = self.breaks.shape
+        uf = u.reshape(-1).contiguous()
+        qf = qclass.reshape(-1)
+        cnt = torch.zeros(uf.shape, dtype=torch.int32, device=uf.device)
+        for c in range(C):
+            cc = torch.searchsorted(self.breaks[c].contiguous(), uf, right=True).to(torch.int32)
+            cnt = torch.where(qf == c, cc, cnt)
+        idx = qf.to(torch.int32) * K + (cnt - 1)
+        return self.vals.reshape(-1)[idx.long()].reshape(u.shape)

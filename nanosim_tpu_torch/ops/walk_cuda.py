@@ -13,72 +13,35 @@ type << 30``, a per-lane prefix, zeros after it) and the final ``pos``,
 ``middle_ref``, ``l_new`` and event count.  The first match of the aligned
 walk is drawn outside, by the caller, as in the JAX package.
 
-The kernels are built from csrc/walk.cu with nvcc for sm_90a on first use
-(about a second; no PyTorch headers) into the package's gitignored build
-directory and bound with ctypes.  See csrc/walk.cu for what bounds them on
-the card.
+The kernels are built from csrc/walk.cu by ops/cuda_build.py on first use
+(about a second; no PyTorch headers) and bound with ctypes.  See
+csrc/walk.cu for what bounds them on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 
 import torch
 
 from . import rng
+from .cuda_build import KernelLibrary
 
 UNROLL = 8  # steps per termination check in the plain loops
 MASK32 = 0xFFFFFFFF
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "walk.cu")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_LIB = os.path.join(_BUILD_DIR, "libwalk.so")
 THREADS_PER_BLOCK = 128  # kThreads in csrc/walk.cu: one thread per lane
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-build_log = ""  # nvcc's output (ptxas register / shared-memory report)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the walk kernels need the CUDA toolkit")
-
-
-def build() -> ctypes.CDLL:
-    """Compile csrc/walk.cu (if the library is missing or older than the
-    source) and load it."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    if not (os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{_LIB}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, _LIB)
-    lib = ctypes.CDLL(_LIB)
+def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.launch_aligned_walk.argtypes = [p, p, p, p, i, p, p, p, p, i, i, p, i, i,
                                         p, p, p, p, p, p]
     lib.launch_aligned_walk.restype = ctypes.c_int
     lib.launch_unaligned_walk.argtypes = [p, p, p, i, i, i, p, p, p, p, p, p]
     lib.launch_unaligned_walk.restype = ctypes.c_int
-    _lib = lib
-    return lib
+
+
+LIBRARY = KernelLibrary("walk.cu", _bind)
 
 
 # --- plain versions -----------------------------------------------------------
@@ -221,7 +184,7 @@ def aligned_steps(walk_keys, m_ref, first_match, match_markov, mixtures, trans,
     if not m_ref.is_cuda:
         return aligned_steps_plain(walk_keys, m_ref, first_match, match_markov,
                                    mixtures, trans, max_events)
-    lib = build()
+    lib = LIBRARY.load()
     dev = m_ref.device
     B, E = m_ref.shape[0], int(max_events)
     wk = _as_u32_words(walk_keys)
@@ -259,7 +222,7 @@ def unaligned_steps(walk_keys, m_ref, mixtures, max_steps: int):
     CPU tensors.  Returns (words [B, E] i32, pos, middle_ref, l_new, n_steps)."""
     if not m_ref.is_cuda:
         return unaligned_steps_plain(walk_keys, m_ref, mixtures, max_steps)
-    lib = build()
+    lib = LIBRARY.load()
     dev = m_ref.device
     B, E = m_ref.shape[0], int(max_steps)
     wk = _as_u32_words(walk_keys)

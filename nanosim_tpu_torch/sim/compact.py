@@ -1,17 +1,22 @@
 """Device-side batch compaction: valid lanes -> one flat transfer buffer.
 
-The meta-only program's batch leaves the device as ONE uint8 buffer:
+A batch leaves the device as ONE uint8 buffer holding only the valid lanes'
+used prefixes:
 
   meta   -> (B+1) rows x META_COLS int64 little-endian; the last row holds
             the needed chunk counts;
+  reads  -> (read-emitting programs) 2-bit codes, 4 bases/byte, each lane
+            starting at a 256-byte aligned offset;
   events -> (only when asked for: the checksum fallback) one u32 per walk
             event (pos2x | len << 17 | type << 30), each lane starting at a
-            64-word (256-byte) aligned offset.
+            64-word (256-byte) aligned offset;
+  quals  -> (read-emitting programs, FASTQ) raw phred+33 bytes, 256-byte
+            aligned offsets.
 
 The host replays each lane's walk and checks it against the per-lane event
 checksum in the metadata, so the event stream normally stays on the device.
-Offsets are a pure function of (valid, n_events), so the host recomputes them
-from the metadata instead of transferring them.
+Offsets are a pure function of (valid, total, n_events), so the host
+recomputes them from the metadata instead of transferring them.
 
 Capacities are static.  The packer reports the needed chunk counts in the
 metadata tail; a batch that overflows its capacity is repacked larger.
@@ -22,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops.apply_errors import _pack_codes4
 
 CHUNK = 256  # bytes per aligned chunk; events use 64 u32 words
 
@@ -89,14 +96,28 @@ def compact_pack(
     ne_cap: int,  # event capacity, CHUNK-byte chunks
     with_events: bool,
     with_checksum: bool,
+    read=None,  # [B, L] uint8 ASCII, final orientation (read-emitting programs)
+    quals=None,  # [B, L] uint8 phred+33 (FASTQ)
+    nr_cap: int = 1,  # read capacity, CHUNK-byte chunks
+    nq_cap: int = 1,  # qual capacity, CHUNK-byte chunks
 ) -> torch.Tensor:
     """ONE uint8 transfer buffer: [ meta (B+1 rows x META_COLS i64 LE; last row
-    = needed chunk counts) | flat events (with_events) ]."""
+    = needed chunk counts) | flat 2-bit reads (read given) | flat events
+    (with_events) | flat quals (quals given) ]."""
     B = valid.shape[0]
     dev = valid.device
     v64 = valid.long()
     parts = []
+    need_r = torch.zeros((), dtype=torch.int64, device=dev)
     need_e = torch.zeros((), dtype=torch.int64, device=dev)
+    need_q = torch.zeros((), dtype=torch.int64, device=dev)
+    if read is not None:
+        packed = _pack_codes4(read)
+        padw = (-packed.shape[1]) % CHUNK
+        if padw:
+            packed = torch.nn.functional.pad(packed, (0, padw))
+        flat_r, need_r = _chunk_compact(packed, v64 * ((total.long() + 3) // 4), nr_cap)
+        parts.append(flat_r)
     if with_events:
         evb = _u32_le_bytes(event_words(ev_pos2x, ev_type, ev_len))  # [B, 4E]
         pade = (-evb.shape[1]) % CHUNK
@@ -104,6 +125,11 @@ def compact_pack(
             evb = torch.nn.functional.pad(evb, (0, pade))
         flat_e, need_e = _chunk_compact(evb, v64 * 4 * n_events.long(), ne_cap)
         parts.append(flat_e)
+    if quals is not None:
+        padq = (-quals.shape[1]) % CHUNK
+        q = torch.nn.functional.pad(quals, (0, padq)) if padq else quals
+        flat_q, need_q = _chunk_compact(q, v64 * total.long(), nq_cap)
+        parts.append(flat_q)
 
     if with_checksum:
         # order-sensitive 32-bit checksum over the packed event words (the
@@ -119,7 +145,7 @@ def compact_pack(
             is_rev, n_events, cap_over, m_ref_init, cksum]
     meta = torch.stack([c.long() for c in cols], dim=1)  # [B, 13]
     tail_row = torch.zeros((1, META_COLS), dtype=torch.int64, device=dev)
-    tail_row[0, 1] = need_e
+    tail_row[0, :3] = torch.stack([need_r, need_e, need_q])
     meta = torch.cat([meta, tail_row])
     meta_bytes = meta.contiguous().view(torch.uint8).reshape(-1)  # little-endian
     return torch.cat([meta_bytes] + [p.reshape(-1) for p in parts])
@@ -219,3 +245,17 @@ def decode_compact(
         cb.quals_flat = np.zeros(1, np.uint8)
 
     return cb, True
+
+
+# byte -> its four bases (code 4w+k at bits 2k)
+_DEC_LUT = np.frombuffer(b"ACGT", np.uint8)[(np.arange(256)[:, None] >> (2 * np.arange(4))) & 3]
+
+
+def decode_reads_ascii(cb: CompactBatch, lanes) -> list:
+    """Decode selected lanes back to ASCII arrays (tests and checks)."""
+    out = []
+    for b in lanes:
+        t = int(cb.total[b])
+        o = int(cb.read_off[b])
+        out.append(_DEC_LUT[cb.reads_flat[o : o + (t + 3) // 4]].reshape(-1)[:t])
+    return out

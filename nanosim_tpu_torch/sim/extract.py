@@ -1,24 +1,38 @@
-"""Reference position sampling for the meta-only program.
+"""Batched reference extraction: position sampling + gathers.
 
-Replaces the reference's per-read start-position draw (`extract_read`,
-simulator.py:1750-1781).  The meta-only program reads no genome bytes (the
-host reconstructs them), so the device holds only the chromosome tables.
+Replaces the reference's per-read string slicing (`extract_read`,
+simulator.py:1694-1781).  The genome lives on the device as one flat uint8
+ASCII array; start positions are sampled per lane with the reference's
+semantics (uniform over the concatenated genome, rejecting reads that span a
+chromosome boundary; circular chromosomes wrap), and the read-emitting
+programs turn a lane's reference segment into a [B, L] gather.  (The
+meta-only program reads no genome bytes: the host reconstructs them.)
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..io.genome import PackedGenome
 from ..ops import rng
 
+CHUNK = 256
+# The flat array is padded with 'A' to a multiple of 4 MiB, as the JAX
+# package pads its 2-bit upload to 1 MiB of packed bytes; no gather reaches
+# the padding inside a chromosome, but the chunked gather's clip point (the
+# last chunk) then matches it too.
+_PAD_TO = 4 << 20
+
 
 @dataclasses.dataclass
 class GenomeDevice:
-    """Device-resident chromosome tables of a packed genome."""
+    """Device-resident packed genome."""
 
+    flat: torch.Tensor  # [padded total] uint8 ASCII ('A' past the genome)
+    flat_chunks: torch.Tensor  # [padded total / CHUNK, CHUNK] view of flat
     offsets: torch.Tensor  # [n_chrom + 1] int64
     lengths: torch.Tensor  # [n_chrom] int64
     circular: torch.Tensor  # [n_chrom] bool
@@ -26,7 +40,13 @@ class GenomeDevice:
 
     @classmethod
     def from_packed(cls, g: PackedGenome, device) -> "GenomeDevice":
+        n = len(g.flat)
+        flat = np.full(max(-(-n // _PAD_TO), 1) * _PAD_TO, ord("A"), np.uint8)
+        flat[:n] = g.flat
+        flat_dev = torch.as_tensor(flat, device=device)
         return cls(
+            flat=flat_dev,
+            flat_chunks=flat_dev.view(-1, CHUNK),
             offsets=torch.as_tensor(g.offsets, dtype=torch.int64, device=device),
             lengths=torch.as_tensor(g.lengths, dtype=torch.int64, device=device),
             circular=torch.as_tensor(g.circular, dtype=torch.bool, device=device),
@@ -81,3 +101,36 @@ def sample_genome_positions(
         local = torch.where(take, lp, local)
         ok = ok | fits
     return chrom, local, ok
+
+
+def gather_segments_padded(genome: GenomeDevice, chrom: torch.Tensor, local_pos: torch.Tensor,
+                           l_cap: int):
+    """Chunked linear extraction: returns (ref_padded [B, l_cap + CHUNK]
+    uint8, off [B] int32) with the segment at ref_padded[b, off[b]:...].
+
+    Whole CHUNK-byte rows are fetched per lane; the residual intra-chunk
+    offset is folded into the downstream mutation gather.  Linear
+    chromosomes only (circular wrap breaks chunk contiguity — callers use the
+    per-byte path there)."""
+    B = chrom.shape[0]
+    gstart = genome.offsets[chrom.long()] + local_pos  # global byte start
+    n_chunks = l_cap // CHUNK + 1
+    chunk0 = gstart // CHUNK
+    off = (gstart % CHUNK).to(torch.int32)
+    idx = (chunk0[:, None] + torch.arange(n_chunks, device=chrom.device)[None, :]).clamp(
+        0, genome.flat_chunks.shape[0] - 1)
+    return genome.flat_chunks[idx].reshape(B, n_chunks * CHUNK), off
+
+
+def gather_segments(genome: GenomeDevice, chrom: torch.Tensor, local_pos: torch.Tensor,
+                    seg_len: torch.Tensor, l_cap: int) -> torch.Tensor:
+    """[B, l_cap] uint8 reference slices with circular wrap (`raw % clen` on
+    circular chromosomes); positions >= seg_len are 0."""
+    c = chrom.long()
+    i = torch.arange(l_cap, dtype=torch.int64, device=chrom.device)[None, :]
+    clen = genome.lengths[c][:, None]
+    raw = local_pos.long()[:, None] + i
+    wrapped = torch.where(genome.circular[c][:, None], raw % clen, raw)
+    idx = genome.offsets[c][:, None] + torch.minimum(wrapped, clen - 1)
+    seg = genome.flat[idx.clamp(0, genome.flat.shape[0] - 1)]
+    return torch.where(i < seg_len[:, None], seg, 0).to(torch.uint8)

@@ -1,17 +1,23 @@
 """Genome-mode simulation: the batched device step + host driver.
 
 The reference's per-read rejection loop (`simulation_aligned_genome`,
-simulator.py:1266-1454) becomes a fixed-shape batch pipeline.  On the device
-(the meta-only program):
+simulator.py:1266-1454) becomes a fixed-shape batch pipeline.  On the device:
 
   slot ids -> per-slot RNG -> KDE length draws -> error walk (CUDA kernel) ->
   position sampling + boundary rejection -> acceptance
 
-About 100 bytes per lane go to the host, where the C++ emitter replays each
-lane's walk, checks it against the device checksum and reconstructs the read
-bytes (sim/reconstruct.py is the spec).  Rejected lanes (length filters,
-boundary rejection, capacity overflow) are simply invalid slots; the host
-driver keeps consuming fresh slot ranges until the read quota is met.
+then, in the read-emitting program only:
+
+  reference gather -> IUPAC resolve -> fused mutation + head/tail + strand
+  flip (packed-code gather: CUDA kernel) -> qualities
+
+On the default route the device runs the meta-only program: about 100 bytes
+per lane go to the host, where the C++ emitter replays each lane's walk,
+checks it against the device checksum and reconstructs the read bytes
+(sim/reconstruct.py is the spec).  Circular DNA and NANOSIM_TPU_RECON=0 run
+the read-emitting program and transfer the reads.  Rejected lanes (length
+filters, boundary rejection, capacity overflow) are simply invalid slots; the
+host driver keeps consuming fresh slot ranges until the read quota is met.
 Sequence numbering is by accepted-slot order, which makes output independent
 of batch scheduling.
 """
@@ -25,7 +31,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops import apply_errors, error_walk, rng, xla_math
+from ..ops import apply_errors, error_walk, rng, seqops, xla_math
 from ..profiles.profile import ReadProfile
 from . import extract
 from .bundles import (FULL_EVENT_SLACK, SimTables, build_tables, estimate_mean_aligned,
@@ -34,7 +40,7 @@ from .bundles import (FULL_EVENT_SLACK, SimTables, build_tables, estimate_mean_a
 
 
 class BatchOut(NamedTuple):
-    """Per-lane results of the meta-only program (all [B] unless noted)."""
+    """Per-lane results of a batch program (all [B] unless noted)."""
 
     valid: torch.Tensor  # bool
     total_len: torch.Tensor  # int32
@@ -56,6 +62,9 @@ class BatchOut(NamedTuple):
     # the walk's INPUT length (clipped KDE draw) — with the slot id this
     # fully determines the event list, enabling host-side walk replay
     m_ref_init: torch.Tensor
+    # the read-emitting program only (None in the meta-only program):
+    read: Optional[torch.Tensor] = None  # [B, L] uint8 ASCII, final orientation
+    quals: Optional[torch.Tensor] = None  # [B, L] uint8 phred+33 (zeros unless fastq)
 
 
 def device_of(device) -> torch.device:
@@ -65,6 +74,24 @@ def device_of(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' was requested but no CUDA card is available")
     return dev
+
+
+def want_recon(circular_dna: bool) -> bool:
+    """Whether a pass runs the meta-only program with host reconstruction:
+    linear DNA unless NANOSIM_TPU_RECON=0 (the reconstruction covers linear
+    DNA only; everything else runs the read-emitting program)."""
+    return not circular_dna and os.environ.get("NANOSIM_TPU_RECON", "1") != "0"
+
+
+def check_circular(genome, circular_dna: bool) -> None:
+    """Refuse circular_dna=True on a genome loaded as linear: the wrap keys off
+    the per-chromosome flags at gather time, so such a genome would silently
+    clamp at the 3' end."""
+    if circular_dna and not bool(np.all(genome.circular)):
+        raise ValueError(
+            "circular_dna=True but the genome was loaded as linear; "
+            'load it with PackedGenome.from_fasta(path, dna_type="circular")'
+        )
 
 
 def _ndtri(q: torch.Tensor) -> torch.Tensor:
@@ -119,12 +146,16 @@ def genome_batch(
     e_max: int,
     min_len: int,
     max_len: float,
+    fastq: bool = False,
+    circular_dna: bool = False,
+    emit_reads: bool = True,
 ) -> BatchOut:
-    """The meta-only aligned-read program (linear DNA, KDE lengths).
+    """The aligned-read batch program (KDE lengths): the read-emitting
+    program, or with emit_reads=False the meta-only one.
 
-    Acceptance matches the JAX package's full read-emitting program exactly:
-    the final length filters run on the DEDUP-aware l_new that the read
-    materialization would produce.
+    Both accept the same lanes: the meta-only program's final length
+    filters run on the DEDUP-aware l_new that the read materialization
+    produces.
     """
     sk = rng.slot_keys(base_key, slots)
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device=slots.device)
@@ -150,46 +181,80 @@ def genome_batch(
     valid &= (total0 >= min_len) & (total0.double() <= max_len)
 
     # --- extraction (simulator.py:1694-1781) ---
-    chrom, local_pos, pos_ok = extract.sample_genome_positions(sk, middle_ref, genome, False)
+    chrom, local_pos, pos_ok = extract.sample_genome_positions(
+        sk, middle_ref, genome, circular_dna)
     valid &= pos_ok
-
-    eff = apply_errors.effective_lens(walk.events_pos2x, walk.events_type, walk.events_len,
-                                      walk.events_valid)
-    zero = torch.zeros_like(eff)
-    dsum = torch.where(walk.events_valid & (walk.events_type == 2), eff, zero).sum(dim=1)
-    isum = torch.where(walk.events_valid & (walk.events_type == 1), eff, zero).sum(dim=1)
-    l_new2 = (middle_ref - dsum + isum).to(torch.int32)
-    total = head + l_new2 + tail
     u_strand = rng.uniform_per_slot(sk, rng.SITE_STRAND)
     is_rev = u_strand > tables.strandness_rate
+
+    read = quals = None
+    if not emit_reads:
+        eff = apply_errors.effective_lens(walk.events_pos2x, walk.events_type,
+                                          walk.events_len, walk.events_valid)
+        zero = torch.zeros_like(eff)
+        dsum = torch.where(walk.events_valid & (walk.events_type == 2), eff, zero).sum(dim=1)
+        isum = torch.where(walk.events_valid & (walk.events_type == 1), eff, zero).sum(dim=1)
+        l_new = (middle_ref - dsum + isum).to(torch.int32)
+        total = head + l_new + tail
+    else:
+        # chunked extraction for linear DNA (whole 256-byte rows, the
+        # intra-chunk offset folded into the code gather); circular wrap
+        # needs the per-byte path
+        if not circular_dna:
+            ref_seg, seg_off = extract.gather_segments_padded(genome, chrom, local_pos, l_cap)
+            u_iupac, _ = rng.uniform2_per_slot(sk, rng.SITE_IUPAC, (l_cap + extract.CHUNK,))
+        else:
+            seg_off = None
+            ref_seg = extract.gather_segments(genome, chrom, local_pos, middle_ref, l_cap)
+            u_iupac, _ = rng.uniform2_per_slot(sk, rng.SITE_IUPAC, (l_cap,))
+        ref_seg = seqops.resolve_iupac(ref_seg, u_iupac)
+        # substitution/insertion uniforms and head/tail bases are addressed
+        # by output position, so values do not depend on buffer widths
+        u_mis, u_ins = rng.uniform2_per_slot(sk, rng.SITE_MIS_BASE, (l_out,))
+        ref_codes = apply_errors._pack_codes4(ref_seg)
+        pad = (-ref_codes.shape[1]) % 128
+        if pad:
+            ref_codes = torch.nn.functional.pad(ref_codes, (0, pad))
+        read, qclass, l_new, total = apply_errors.fused_read_v2(
+            walk.events_pos2x, walk.events_type, walk.events_len, walk.events_valid,
+            middle_ref, head, tail, is_rev, ref_codes, ref_seg.shape[1], seg_off, sk,
+            u_mis, u_ins, l_out, ht_cap, rng.SITE_HEAD_TAIL)
+        quals = torch.zeros_like(read)
+        if fastq:
+            u_q = rng.uniform_per_slot(sk, rng.SITE_QUAL, (l_out,))
+            q = tables.qual.sample(qclass, u_q)
+            in_read = torch.arange(l_out, device=read.device)[None, :] < total[:, None]
+            quals = torch.where(in_read, (q + 33).to(torch.uint8), 0).to(torch.uint8)
     valid &= (total >= min_len) & (total.double() <= max_len)
     cap_over |= total > l_out
     valid &= ~cap_over
     return BatchOut(
         valid=valid, total_len=total, head=head, tail=tail, middle_ref=middle_ref,
-        l_new=l_new2, chrom=chrom, local_pos=local_pos, is_reversed=is_rev,
+        l_new=l_new, chrom=chrom, local_pos=local_pos, is_reversed=is_rev,
         ev_pos2x=walk.events_pos2x, ev_type=walk.events_type, ev_len=walk.events_len,
         ev_valid=walk.events_valid, n_events=walk.n_events,
-        capacity_overflow=cap_over, m_ref_init=m_ref,
+        capacity_overflow=cap_over, m_ref_init=m_ref, read=read, quals=quals,
     )
 
 
 class OverflowRescueWriter:
     """Writer shim: lanes whose walk overflowed the lean event budget
-    (capacity_overflow) are re-run through the meta-only program at the full
-    budget and spliced back IN SLOT ORDER before emission, so the lean budget
-    is invisible in the output.  The rescued lanes are reconstructed on the
-    host like every other lane (the recon design makes that the same bytes
-    the read-emitting program would give).
+    (capacity_overflow) are re-run through the run's own program (meta-only
+    or read-emitting, `emit_reads`) at the full budget and spliced back IN
+    SLOT ORDER before emission, so the lean budget is invisible in the
+    output.  On the host-reconstruction route the rescued lanes are
+    reconstructed like every other lane (the recon design makes that the same
+    bytes the read-emitting program would give).
     """
 
     RESCUE_BATCH = 64
 
-    def __init__(self, sim, writer, base_key, make_fetcher):
+    def __init__(self, sim, writer, base_key, make_fetcher, emit_reads: bool):
         self.sim = sim
         self.inner = writer
         self.base = base_key
         self.make_fetcher = make_fetcher  # () -> fresh fetcher for rescue runs
+        self.emit_reads = emit_reads
         self._fn = None
         self._fetcher = None
         inner_enqueue = getattr(writer, "enqueue_task", None)
@@ -203,7 +268,7 @@ class OverflowRescueWriter:
         """
         sim = self.sim
         if self._fn is None:
-            self._fn = sim.batch_fn(full_events=True)
+            self._fn = sim.batch_fn(full_events=True, emit_reads=self.emit_reads)
             self._fetcher = self.make_fetcher()
         out = {}
         B = self.RESCUE_BATCH
@@ -341,9 +406,11 @@ class ResumeState:
 class GenomeSimulator:
     """Host driver: batches, slot accounting, acceptance, output.
 
-    This slice covers linear DNA with KDE lengths on the host-reconstruction
-    route (FASTA or FASTQ, error profile); circular DNA, --perfect, -hp and
-    the median/sd lognormal lengths are not ported yet."""
+    This slice covers KDE lengths with FASTA or FASTQ and the error profile:
+    linear DNA on the host-reconstruction route, and the read-emitting
+    program for circular DNA (a single chromosome) and for
+    NANOSIM_TPU_RECON=0.  --perfect, -hp and the median/sd lognormal lengths
+    are not ported yet."""
 
     def __init__(
         self,
@@ -351,6 +418,7 @@ class GenomeSimulator:
         profile: ReadProfile,
         *,
         fastq: bool = False,
+        circular_dna: bool = False,
         min_len: int = 50,
         max_len: float = float("inf"),
         batch: int = 256,
@@ -358,6 +426,7 @@ class GenomeSimulator:
     ):
         if fastq and profile.base_quals is None:
             raise ValueError("fastq=True needs a profile loaded with fastq=True")
+        check_circular(genome, circular_dna)
         self.device = device_of(device)
         self.genome_host = genome
         self.profile = profile
@@ -365,6 +434,7 @@ class GenomeSimulator:
         self.max_len = max_len
         self.min_len = min_len
         self.fastq = fastq
+        self.circular_dna = circular_dna
         self.batch = batch
 
         self.l_cap = plan_ref_capacity(profile, max_len, genome.max_chrom)
@@ -375,20 +445,26 @@ class GenomeSimulator:
         self.tables = build_tables(profile, self.device)
         self.genome_dev = extract.GenomeDevice.from_packed(genome, self.device)
 
-    def batch_fn(self, full_events: bool = False):
-        """The meta-only batch program; full_events=True uses the full
+    def batch_fn(self, full_events: bool = False, emit_reads: bool = True):
+        """The batch program: read-emitting, or meta-only (host
+        reconstruction) with emit_reads=False; full_events=True uses the full
         (rescue-grade) event budget."""
         e_max = (plan_event_budget(self.profile, self.l_cap, slack=FULL_EVENT_SLACK)
                  if full_events else self.e_max)
         return functools.partial(
             genome_batch, genome=self.genome_dev, tables=self.tables,
             l_cap=self.l_cap, l_out=self.l_out, ht_cap=self.ht_cap, e_max=e_max,
-            min_len=self.min_len, max_len=self.max_len,
+            min_len=self.min_len, max_len=self.max_len, fastq=self.fastq,
+            circular_dna=self.circular_dna, emit_reads=emit_reads,
         )
 
     def run(self, n_reads: int, writer, seed: int = 0, max_batches: Optional[int] = None,
             resume_state: Optional[str] = None):
         """Simulate n_reads aligned reads into `writer`.
+
+        Linear DNA runs the meta-only program and reconstructs the reads on
+        the host unless NANOSIM_TPU_RECON=0; circular DNA always runs the
+        read-emitting program (the reconstruction covers linear DNA only).
 
         resume_state: path to a (slot cursor, accepted) checkpoint file; if
         it exists the run continues from it (callers must open the output
@@ -396,9 +472,12 @@ class GenomeSimulator:
         from ..io.native import WalkReplayer
         from .output import CompactFetcher
 
+        recon = want_recon(self.circular_dna)
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
         est_bases = estimate_mean_aligned(self.profile) * 1.1 + 64
         est_events = est_bases / (estimate_mean_match(self.profile) + 1.0)
+        # the replayed walk gives the host the events: on the recon route
+        # for the read bytes, on the read-emitting route for the error log
         replayer = WalkReplayer(
             self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_WALK,
             e_guard=plan_event_budget(self.profile, self.l_cap, slack=FULL_EVENT_SLACK),
@@ -407,11 +486,12 @@ class GenomeSimulator:
         def make_fetcher(lazy_replay=False):
             return CompactFetcher(self.batch, est_events, replayer,
                                   recon_info=(seed, rng.STREAM_ALIGNED, self.ht_cap),
-                                  lazy_replay=lazy_replay)
+                                  lazy_replay=lazy_replay, with_reads=not recon,
+                                  fastq=self.fastq, est_bases=est_bases)
 
         fetcher = make_fetcher(lazy_replay=True)
-        wrapped = OverflowRescueWriter(self, writer, base, make_fetcher)
-        fn = self.batch_fn()
+        wrapped = OverflowRescueWriter(self, writer, base, make_fetcher, emit_reads=not recon)
+        fn = self.batch_fn(emit_reads=not recon)
 
         def make_batch(slot_start):
             slots = np.arange(slot_start, slot_start + self.batch, dtype=np.int64)

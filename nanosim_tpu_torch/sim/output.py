@@ -11,9 +11,10 @@ Naming and file layout match the reference exactly:
   written per read in reverse position order (mutate_read,
   simulator.py:2006-2008; header at simulator.py:1634).
 
-The device runs the meta-only program: a batch comes back as one compacted
-metadata buffer (sim/compact.py), the host replays each lane's walk, checks
-it against the device checksum, and reconstructs the read bytes.
+A batch comes back as one compacted buffer (sim/compact.py): metadata, and
+the reads when the device ran the read-emitting program.  The host replays
+each lane's walk, checks it against the device checksum, and (meta-only
+program) reconstructs the read bytes.
 """
 
 from __future__ import annotations
@@ -139,10 +140,11 @@ class ErrorLogWriter:
 class GenomeBatchWriter:
     """Accept/number/emit a genome-mode batch (aligned reads).
 
-    Batches are meta-only CompactBatches: the read bytes (and FASTQ
-    qualities) are reconstructed host-side from the genome, the replayed
-    walk events and the counter RNG by the C++ emitter (sim/reconstruct.py
-    is its numpy spec)."""
+    Batches are CompactBatches.  From the meta-only program the read bytes
+    (and FASTQ qualities) are reconstructed host-side from the genome, the
+    replayed walk events and the counter RNG by the C++ emitter
+    (sim/reconstruct.py is its numpy spec); from the read-emitting program
+    they arrive 2-bit packed, and the emitter decodes and formats them."""
 
     def __init__(self, fastx: FastxWriter, error_log=None):
         self.fastx = fastx
@@ -183,23 +185,29 @@ class GenomeBatchWriter:
         return names
 
     def _write_flat(self, sim, cb, lanes, accepted_so_far: int, with_events: bool) -> int:
-        """Emit a meta-only batch whose read bytes are reconstructed host-side."""
+        """Emit a compacted batch: 2-bit flat reads from the read-emitting
+        program, or a meta-only batch whose read bytes are reconstructed
+        host-side."""
         fin = getattr(cb, "finish", None)
         if fin is not None:
             fin()  # lazy walk replay (idempotent), in the emission worker
         g = sim.genome_host
         names = self._lane_names(sim, cb, lanes, accepted_so_far)
         chrom = cb.chrom[lanes]
-        qt = None
-        if sim.fastq:
-            q = sim.tables.qual
-            qt = (q.breaks.cpu().numpy(), q.vals.cpu().numpy())
-        fastx_mv, err_mv = self._emitter.emit_recon(
+        kw = {}
+        if cb.reads_flat is None:
+            emit = self._emitter.emit_recon
+            if sim.fastq:
+                q = sim.tables.qual
+                kw["qual_table"] = (q.breaks.cpu().numpy(), q.vals.cpu().numpy())
+        else:
+            emit = self._emitter.emit_flat
+        fastx_mv, err_mv = emit(
             cb, np.asarray(lanes, np.int64), names,
             g_off=g.offsets[chrom], g_len=g.lengths[chrom],
             g_circ=np.ascontiguousarray(g.circular[chrom], np.uint8),
             genome_flat=g.flat, fastq=sim.fastq,
-            write_errors=with_events, qual_table=qt,
+            write_errors=with_events, **kw,
         )
         io = getattr(self, "io_pool", None)
         if io is not None:
@@ -238,38 +246,64 @@ class CompactHandle:
 
 
 class CompactFetcher:
-    """Single-round-trip fetcher for meta-only batches.
+    """Single-round-trip batch fetcher via device-side compaction.
 
-    The device packs the batch's per-lane metadata and event checksums into
-    one uint8 buffer (sim/compact.py): one device->host copy per batch.  The
-    host REGENERATES each accepted lane's events with the walk replayer and
-    verifies them against the device checksum, so the event stream stays on
-    the device; the read bytes are reconstructed host-side from the replayed
-    events + genome + counter RNG (recon_info = (seed, stream, ht_cap)).
+    The device packs the batch's per-lane metadata and event checksums (and,
+    for a read-emitting program, the valid lanes' 2-bit reads and FASTQ
+    qualities) into one uint8 buffer (sim/compact.py): one device->host copy
+    per batch.  The host REGENERATES each accepted lane's events with the
+    walk replayer and verifies them against the device checksum, so the
+    event stream stays on the device.  Without reads (with_reads=False, the
+    host-reconstruction route) the read bytes are reconstructed host-side
+    from the replayed events + genome + counter RNG (recon_info = (seed,
+    stream, ht_cap)); that route needs the replayer.  With reads and no
+    replayer, no events reach the host (the unaligned pass writes no error
+    log).
 
     A lane whose replay fails its checksum gets its events from the device
     instead (an exact second transfer); such lanes are counted in
     RUN_STATS.checksum_fallback_lanes, which on a healthy run stays 0: the
     device walk and the independent C++ replay agree event for event.
+
+    The read and quality capacities start from profile estimates (est_bases
+    per read) and lock to the first batch's need plus a margin; a batch that
+    overflows them is repacked larger.  They shape the transfer only, never
+    the output.
     """
 
-    def __init__(self, batch: int, est_events: float, replayer, recon_info,
-                 lazy_replay: bool = False):
+    # first batch: generous margin (estimates only); then lock to the
+    # observed need + LOCKED_MARGIN (batch sums concentrate hard)
+    FIRST_MARGIN = 1.35
+    LOCKED_MARGIN = 1.06
+
+    def __init__(self, batch: int, est_events: float, replayer, recon_info=None,
+                 lazy_replay: bool = False, with_reads: bool = False, fastq: bool = False,
+                 est_bases: float = 0.0):
         from . import compact as _c
 
-        if replayer is None or not replayer.available:
-            raise RuntimeError(
-                "host reconstruction needs the native walk replayer "
-                "(native/fastwriter.cpp built with g++)")
+        if replayer is not None and not replayer.available:
+            raise RuntimeError("the walk replayer needs native/fastwriter.cpp built with g++")
+        if replayer is None and not with_reads:
+            raise RuntimeError("host reconstruction needs the native walk replayer")
         self._c = _c
         self.replayer = replayer
         self.recon_info = recon_info
+        self.with_reads = with_reads
+        # reconstruction regenerates FASTQ qualities host-side too, so the
+        # qual stream only crosses the link when the read bytes do
+        self.transfer_quals = fastq and with_reads
         # lazy_replay: defer the host walk replay from the fetch (critical
         # path of the accept loop) to an idempotent cb.finish() the emission
         # worker calls — the replay's CPU then overlaps the next batch
         self.lazy_replay = lazy_replay
+        self._locked = not with_reads  # meta-only buffers have nothing to size
+        ch = _c.CHUNK
+        self.nr_cap = (self._tier(int(batch * (est_bases / 4.0 / ch + 1) * self.FIRST_MARGIN))
+                       if with_reads else 1)
+        self.nq_cap = (self._tier(int(batch * (est_bases / ch + 1) * self.FIRST_MARGIN))
+                       if self.transfer_quals else 1)
         # event capacity of the rare fallback transfer, in CHUNK-byte chunks
-        self.ne_cap = self._tier(int(batch * (est_events * 4.0 / _c.CHUNK + 1) * 1.35))
+        self.ne_cap = self._tier(int(batch * (est_events * 4.0 / ch + 1) * self.FIRST_MARGIN))
 
     @staticmethod
     def _tier(n: int) -> int:
@@ -277,13 +311,16 @@ class CompactFetcher:
         return max(256, -(-n // 256) * 256)
 
     def _dispatch(self, out, force_events: bool = False):
-        caps = (1, self.ne_cap if force_events else 1, 1)
+        caps = (self.nr_cap, self.ne_cap if force_events else 1, self.nq_cap)
         buf = self._c.compact_pack(
             out.valid, out.total_len, out.head, out.tail, out.middle_ref,
             out.l_new, out.chrom, out.local_pos, out.is_reversed, out.n_events,
             out.capacity_overflow, out.ev_pos2x, out.ev_type, out.ev_len,
             out.m_ref_init, ne_cap=caps[1], with_events=force_events,
-            with_checksum=not force_events,
+            with_checksum=self.replayer is not None and not force_events,
+            read=out.read if self.with_reads else None,
+            quals=out.quals if self.transfer_quals else None,
+            nr_cap=caps[0], nq_cap=caps[2],
         )
         return buf, caps
 
@@ -293,16 +330,35 @@ class CompactFetcher:
 
     def _decode(self, buf_dev, B, caps, with_events):
         return self._c.decode_compact(
-            buf_dev.cpu().numpy(), B, caps[0], caps[1], caps[2], fastq=False,
-            with_events=with_events, with_reads=False)
+            buf_dev.cpu().numpy(), B, caps[0], caps[1], caps[2], fastq=self.transfer_quals,
+            with_events=with_events, with_reads=self.with_reads)
 
     def _fetch(self, h: CompactHandle):
         B = h.out.valid.shape[0]
         cb, ok = self._decode(h.buf_dev, B, h.caps, with_events=False)
         if not ok:
-            raise RuntimeError("meta-only compaction reported a stream overflow")
+            need_r, _, need_q = cb
+            self.nr_cap = max(self.nr_cap, self._tier(int(need_r * 1.1) + 1))
+            self.nq_cap = max(self.nq_cap, self._tier(int(need_q * 1.1) + 1))
+            self._locked = True
+            buf_dev, caps = self._dispatch(h.out)
+            cb, ok = self._decode(buf_dev, B, caps, with_events=False)
+            if not ok:
+                raise RuntimeError("compaction overflow after a capacity bump")
+        elif not self._locked:
+            # shrink to the first batch's need: the full capacity crosses
+            # the link, so slack is wasted bandwidth
+            need_r, _, need_q = cb.needs
+            if self.with_reads:
+                self.nr_cap = self._tier(int(need_r * self.LOCKED_MARGIN) + 1)
+            if self.transfer_quals:
+                self.nq_cap = self._tier(int(need_q * self.LOCKED_MARGIN) + 1)
+            self._locked = True
         cb.slots = getattr(h, "slots", None)
-        cb.recon = self.recon_info
+        if not self.with_reads:
+            cb.recon = self.recon_info
+        if self.replayer is None:
+            return cb
         if self.lazy_replay:
             done = []
 

@@ -28,6 +28,7 @@ def simulate_genome(
     *,
     fastq: bool = False,
     strandness: Optional[float] = None,
+    dna_type: str = "linear",
     min_len: int = 50,
     max_len: float = float("inf"),
     seed: int = 0,
@@ -36,11 +37,13 @@ def simulate_genome(
     device="cuda",
 ) -> dict:
     """Genome-mode simulation (reference main genome branch,
-    simulator.py:2226-2320): linear DNA, aligned then unaligned reads.
-    Returns counters for reporting.  Runs on the card unless `device` says
-    otherwise."""
+    simulator.py:2226-2320): aligned then unaligned reads, linear or circular
+    DNA (circular: one chromosome).  Returns counters for reporting.  Runs on
+    the card unless `device` says otherwise."""
     _log("Read in reference")
-    genome = PackedGenome.from_fasta(ref_g, dna_type="linear")
+    genome = PackedGenome.from_fasta(ref_g, dna_type=dna_type)
+    if dna_type == "circular" and genome.n_chrom > 1:
+        raise ValueError("Do not choose circular if there is more than one chromosome in the genome!")
 
     _log("Read profile")
     prof = profile_mod.load_profile(model_prefix, mode="genome", fastq=fastq,
@@ -53,8 +56,9 @@ def simulate_genome(
     ext = ".fastq" if fastq else ".fasta"
 
     _log("Start simulation of aligned reads")
-    sim = GenomeSimulator(genome, prof, fastq=fastq, min_len=min_len, max_len=max_len,
-                          batch=batch, device=device)
+    circular = dna_type == "circular"
+    sim = GenomeSimulator(genome, prof, fastq=fastq, circular_dna=circular, min_len=min_len,
+                          max_len=max_len, batch=batch, device=device)
     state_path = out + "_aligned.resume.json"
     resuming = resume and os.path.exists(state_path)
     fw = output.FastxWriter(out + "_aligned_reads" + ext, fastq, append=resuming)
@@ -66,8 +70,8 @@ def simulate_genome(
 
     if n_unaligned > 0:
         _log("Start simulation of random reads")
-        usim = UnalignedSimulator(genome, prof, fastq=fastq, min_len=min_len,
-                                  max_len=max_len, batch=batch, device=device)
+        usim = UnalignedSimulator(genome, prof, fastq=fastq, circular_dna=circular,
+                                  min_len=min_len, max_len=max_len, batch=batch, device=device)
         ufw = output.FastxWriter(out + "_unaligned_reads" + ext, fastq)
         usim.run(n_unaligned, UnalignedBatchWriter(ufw), seed=seed)
         ufw.close()

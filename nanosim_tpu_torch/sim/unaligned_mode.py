@@ -5,9 +5,10 @@ Same batch machinery as the genome aligned pass, but: lengths come from the
 unaligned-length KDE, the error walk uses fixed type probabilities
 (unaligned walk, CUDA kernel on the card), there is no head/tail, and FASTQ
 qualities are all "unmapped"-class.  Read names end `_unaligned_<idx>_<F|R>`
-with 0 head/tail and middle_ref as the middle length.  The device runs the
-meta-only program; the host replays the step stream and reconstructs the
-bytes (reconstruct_unaligned_lane is the spec).
+with 0 head/tail and middle_ref as the middle length.  On linear DNA the
+device runs the meta-only program and the host replays the step stream and
+reconstructs the bytes (reconstruct_unaligned_lane is the spec); circular
+DNA and NANOSIM_TPU_RECON=0 run the read-emitting program.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import functools
 import numpy as np
 import torch
 
-from ..ops import error_walk, rng
+from ..ops import apply_errors, error_walk, rng, seqops
 from . import extract
 from .bundles import SimTables, build_tables
-from .genome_mode import BatchOut, _kde_draw, device_of
+from .genome_mode import BatchOut, _kde_draw, check_circular, device_of, want_recon
+
+QCLASS_UNMAPPED = 4
 
 
 def unaligned_batch(
@@ -33,8 +36,12 @@ def unaligned_batch(
     e_max: int,
     min_len: int,
     max_len: float,
+    fastq: bool = False,
+    circular_dna: bool = False,
+    emit_reads: bool = True,
 ) -> BatchOut:
-    """The meta-only unaligned-read program (linear DNA, KDE lengths)."""
+    """The unaligned-read batch program (KDE lengths): the read-emitting
+    program, or with emit_reads=False the meta-only one."""
     B = slots.shape[0]
     sk = rng.slot_keys(base_key, slots)
 
@@ -49,26 +56,51 @@ def unaligned_batch(
     # length filter on middle_ref (simulator.py:1503-1504)
     valid &= ~cap_over & (middle_ref >= min_len) & (middle_ref.double() <= max_len)
 
-    chrom, local_pos, pos_ok = extract.sample_genome_positions(sk, middle_ref, genome, False)
+    chrom, local_pos, pos_ok = extract.sample_genome_positions(
+        sk, middle_ref, genome, circular_dna)
     valid &= pos_ok
-
-    # The read-emitting program rejects lanes whose presentation buffer
-    # overflows; its closed form: middle_ref + total inserted bases exceeds
-    # build_unaligned_map's default capacity.
-    p_cap = l_cap + (l_cap >> 1) + 256
-    ins = walk.events_valid & (walk.events_type == 1)
-    tot_ins = torch.where(ins, walk.events_len, torch.zeros_like(walk.events_len)).sum(dim=1)
-    valid &= (middle_ref + tot_ins) <= p_cap
-    valid &= (l_new >= min_len) & (l_new.double() <= max_len)
     u_strand = rng.uniform_per_slot(sk, rng.SITE_STRAND)
     is_rev = u_strand > tables.strandness_rate
+
+    read = quals = None
+    if not emit_reads:
+        # The read-emitting program rejects lanes whose presentation buffer
+        # overflows; its closed form: middle_ref + total inserted bases
+        # exceeds build_unaligned_map's default capacity.
+        ins = walk.events_valid & (walk.events_type == 1)
+        tot_ins = torch.where(ins, walk.events_len, torch.zeros_like(walk.events_len)).sum(dim=1)
+        valid &= (middle_ref + tot_ins) <= apply_errors.presentation_cap(l_cap)
+    else:
+        ref_seg = extract.gather_segments(genome, chrom, local_pos, middle_ref, l_cap)
+        u_iupac, u_mis = rng.uniform2_per_slot(sk, rng.SITE_IUPAC, (l_cap,))
+        ref_seg = seqops.resolve_iupac(ref_seg, u_iupac)
+        # unaligned walk: mutate_read's reverse splicing of the pos + 0.1
+        # insertion keys makes same-pos mis/del act on contiguous
+        # POST-insertion positions (build_unaligned_map)
+        gm, under_ins, map_ov = apply_errors.build_unaligned_map(
+            walk.events_pos2x, walk.events_type, walk.events_len, walk.events_valid,
+            middle_ref, l_cap)
+        valid &= ~map_ov
+        u_ins, _ = rng.uniform2_per_slot(sk, rng.SITE_INS_BASE, (l_cap,))
+        read = apply_errors.materialize_read(gm.src, gm.qclass, gm.valid, ref_seg, u_mis,
+                                             u_ins, under_ins=under_ins)
+        read = torch.where(is_rev[:, None], seqops.reverse_complement(read, l_new), read)
+        quals = torch.zeros_like(read)
+        if fastq:
+            u_q = rng.uniform_per_slot(sk, rng.SITE_QUAL, (l_cap,))
+            q = tables.qual.sample(torch.full(read.shape, QCLASS_UNMAPPED, dtype=torch.int32,
+                                              device=read.device), u_q)
+            j = torch.arange(l_cap, device=read.device)[None, :]
+            quals = torch.where(j < l_new[:, None], (q + 33).to(torch.uint8), 0).to(torch.uint8)
+    # mutated-length filter (simulator.py:1517-1518)
+    valid &= (l_new >= min_len) & (l_new.double() <= max_len)
     zero = torch.zeros(B, dtype=torch.int32, device=slots.device)
     return BatchOut(
         valid=valid, total_len=l_new, head=zero, tail=zero, middle_ref=middle_ref,
         l_new=l_new, chrom=chrom, local_pos=local_pos, is_reversed=is_rev,
         ev_pos2x=walk.events_pos2x, ev_type=walk.events_type, ev_len=walk.events_len,
         ev_valid=walk.events_valid, n_events=walk.n_events,
-        capacity_overflow=cap_over, m_ref_init=m_walk,
+        capacity_overflow=cap_over, m_ref_init=m_walk, read=read, quals=quals,
     )
 
 
@@ -85,10 +117,9 @@ class UnalignedBatchWriter:
         self._emitter = None
 
     def write_batch(self, sim, out, accepted_so_far: int, quota: int) -> int:
-        return self._write_recon(sim, out.fetch(), accepted_so_far, quota)
-
-    def _write_recon(self, sim, cb, accepted_so_far: int, quota: int) -> int:
-        """Host-reconstruct + emit a meta-only compact batch."""
+        """Emit a compact batch: reconstructed on the host from a meta-only
+        batch, or decoded from the read-emitting program's 2-bit reads."""
+        cb = out.fetch()
         if getattr(cb, "finish", None) is not None:
             cb.finish()  # lazy walk replay
         lanes = np.nonzero(cb.valid & ~cb.cap_over)[0][: quota - accepted_so_far]
@@ -104,19 +135,27 @@ class UnalignedBatchWriter:
                 f"{gnames[cb.chrom[b]]}_{cb.pos[b]}_unaligned_{idx}_{strand}"
                 f"_0_{cb.middle_ref[b]}_0"
             )
-        qt = None
-        if sim.fastq:
-            qd = sim.tables.qual
-            qt = (qd.breaks.cpu().numpy(), qd.vals.cpu().numpy())
         from ..io.native import NativeEmitter
 
         if self._emitter is None:
             self._emitter = NativeEmitter()
-        mv = self._emitter.emit_recon_unaligned(
-            cb, np.asarray(lanes, np.int64), names,
-            g_off=g.offsets[cb.chrom[lanes]], genome_flat=g.flat,
-            fastq=sim.fastq, qual_table=qt,
-        )
+        lanes = np.asarray(lanes, np.int64)
+        chrom = cb.chrom[lanes]
+        if cb.reads_flat is None:
+            qt = None
+            if sim.fastq:
+                qd = sim.tables.qual
+                qt = (qd.breaks.cpu().numpy(), qd.vals.cpu().numpy())
+            mv = self._emitter.emit_recon_unaligned(
+                cb, lanes, names, g_off=g.offsets[chrom], genome_flat=g.flat,
+                fastq=sim.fastq, qual_table=qt,
+            )
+        else:
+            mv, _ = self._emitter.emit_flat(
+                cb, lanes, names, g_off=g.offsets[chrom], g_len=g.lengths[chrom],
+                g_circ=np.ascontiguousarray(g.circular[chrom], np.uint8),
+                genome_flat=g.flat, fastq=sim.fastq, write_errors=False,
+            )
         self.fastx.flush()
         self.fastx.f.write(mv)
         return len(lanes)
@@ -129,6 +168,7 @@ class UnalignedSimulator:
         profile,
         *,
         fastq=False,
+        circular_dna=False,
         min_len=50,
         max_len=float("inf"),
         batch=256,
@@ -137,10 +177,12 @@ class UnalignedSimulator:
         if profile.kde_unaligned is None or profile.mix_params is None:
             raise ValueError("the unaligned pass needs the unaligned-length KDE and "
                              "the error-length mixtures")
+        check_circular(genome, circular_dna)
         self.device = device_of(device)
         self.genome_host = genome
         self.profile = profile
         self.fastq = fastq
+        self.circular_dna = circular_dna
         max_len = min(max_len, genome.max_chrom)
         kde = profile.kde_unaligned
         support = float(np.max(kde.data)) + 6.0 * kde.bandwidth
@@ -152,29 +194,36 @@ class UnalignedSimulator:
         self.e_max = -(-(int(l_cap * 1.25) + 64) // 8) * 8
         self.tables = build_tables(profile, self.device)
         self.genome_dev = extract.GenomeDevice.from_packed(genome, self.device)
-        self.kw = dict(l_cap=l_cap, e_max=self.e_max, min_len=min_len, max_len=max_len)
+        self.kw = dict(l_cap=l_cap, e_max=self.e_max, min_len=min_len, max_len=max_len,
+                       fastq=fastq, circular_dna=circular_dna)
         self.batch = batch
 
-    def batch_fn(self):
+    def batch_fn(self, emit_reads: bool = True):
         return functools.partial(
-            unaligned_batch, genome=self.genome_dev, tables=self.tables, **self.kw
+            unaligned_batch, genome=self.genome_dev, tables=self.tables,
+            emit_reads=emit_reads, **self.kw
         )
 
     def run(self, n_reads, writer, seed=0, max_batches=None, resume_state=None):
+        """Linear DNA runs the meta-only program with host reconstruction
+        unless NANOSIM_TPU_RECON=0; circular DNA the read-emitting one."""
         from ..io.native import UnalignedWalkReplayer
         from .genome_mode import ResumeState, run_prefetched
         from .output import CompactFetcher
 
+        recon = want_recon(self.circular_dna)
         base = rng.base_key(seed, rng.STREAM_UNALIGNED, device=self.device)
+        # without reconstruction the host needs no events (no error log)
         replayer = UnalignedWalkReplayer(
             self.profile, seed, rng.STREAM_UNALIGNED, rng.SITE_UNALIGNED_WALK,
             e_guard=self.e_max,
-        )
+        ) if recon else None
         est_bases = float(np.mean(self.profile.kde_unaligned.data)) * 1.2 + 64
         fetcher = CompactFetcher(self.batch, est_bases / 1.2, replayer,
                                  recon_info=(seed, rng.STREAM_UNALIGNED, 0),
-                                 lazy_replay=True)
-        fn = self.batch_fn()
+                                 lazy_replay=True, with_reads=not recon,
+                                 fastq=self.fastq, est_bases=est_bases)
+        fn = self.batch_fn(emit_reads=not recon)
 
         def make_batch(slot_start):
             slots = np.arange(slot_start, slot_start + self.batch, dtype=np.int64)

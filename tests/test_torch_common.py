@@ -27,6 +27,27 @@ def make_model(dirpath: str, **kw) -> str:
     return prefix
 
 
+IUPAC_CODES = b"YRWSKMDVHBNX"
+
+
+def make_iupac_reference(path: str, lengths, seed: int) -> None:
+    """A random FASTA reference (70-column lines) in which about one base in
+    150 is an ambiguity code, every code of IUPAC_CODES included, some of
+    them lowercase (the loaders uppercase them)."""
+    rs = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for ci, n in enumerate(lengths):
+            seq = np.frombuffer(b"ACGT", np.uint8)[rs.integers(0, 4, n)].copy()
+            pos = rs.choice(n, max(len(IUPAC_CODES), n // 150), replace=False)
+            seq[pos] = np.frombuffer(IUPAC_CODES, np.uint8)[np.arange(len(pos)) % len(IUPAC_CODES)]
+            low = pos[::7]
+            seq[low] = seq[low] + 32
+            s = seq.tobytes().decode()
+            f.write(f">chr{ci + 1}\n")
+            for i in range(0, n, 70):
+                f.write(s[i : i + 70] + "\n")
+
+
 def tables_to_numpy(t) -> dict:
     """The JAX SimTables' leaves as {"<field>.<attr>": ndarray}."""
     d = {}

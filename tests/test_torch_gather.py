@@ -1,0 +1,56 @@
+"""The packed-code read gather: its plain version on the CPU, and the CUDA
+kernel against the plain version on the card.
+
+The card-only test imports no JAX; run it on the machine with the card with:
+python -m pytest --noconftest -m gpu tests/test_torch_gather.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nanosim_tpu_torch.ops import gather_cuda
+
+
+def _inputs(B, PB, L, seed):
+    """Packed rows and near-contiguous source indices (each lane's output
+    position plus a random walk of indel drift), some of them out of the
+    row at both ends, made from a seed with numpy."""
+    rs = np.random.default_rng(seed)
+    packed = rs.integers(0, 256, (B, PB), dtype=np.uint8)
+    drift = np.cumsum(rs.integers(-1, 2, (B, L)), axis=1)
+    src = rs.integers(-8, 64, (B, 1)) + np.arange(L)[None, :] + drift
+    src[:, :3] = [-5, 4 * PB + 7, 4 * PB - 1]
+    return torch.from_numpy(packed), torch.from_numpy(src.astype(np.int32))
+
+
+def test_plain_gather_on_cpu_matches_numpy():
+    """On CPU tensors the wrapper runs the plain version and launches
+    nothing; the plain version is the JAX package's take_along_axis of the
+    packed row at clip(src >> 2), then the code's two bits."""
+    packed, src = _inputs(5, 40, 150, seed=1)
+    before = gather_cuda.gather_codes.launches
+    got = gather_cuda.gather_codes(packed, src).numpy()
+    p, s = packed.numpy(), src.numpy()
+    byte = np.take_along_axis(p.astype(np.int32), np.clip(s >> 2, 0, p.shape[1] - 1), axis=1)
+    want = ((byte >> ((s & 3) * 2)) & 3).astype(np.uint8)
+    np.testing.assert_array_equal(got, want)
+    assert gather_cuda.gather_codes.launches == before
+
+
+@pytest.mark.gpu
+def test_gather_kernel_matches_plain_on_card():
+    """The CUDA kernel equals its plain PyTorch version on the card, exactly,
+    at a ragged shape (B=37, L=3,000, PB=770) and a small one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the gather kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for B, PB, L, seed in ((37, 770, 3000, 2), (3, 5, 17, 3)):
+        packed, src = (t.to(dev) for t in _inputs(B, PB, L, seed))
+        before = gather_cuda.gather_codes.launches
+        got = gather_cuda.gather_codes(packed, src)
+        want = gather_cuda.gather_codes_plain(packed, src)
+        torch.cuda.synchronize()
+        assert gather_cuda.gather_codes.launches == before + 1
+        assert got.dtype == torch.uint8 and got.shape == (B, L)
+        assert torch.equal(got, want)

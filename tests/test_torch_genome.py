@@ -77,7 +77,8 @@ def test_meta_batch_and_transfer_buffer(fixture):
     js, ts = _sims(prefix, ref)
     slots = np.arange(5 * BATCH, 6 * BATCH, dtype=np.int64)
     jo = js.batch_fn(emit_reads=False)(jgm.rng.base_key(SEED), jnp.asarray(slots))
-    to = ts.batch_fn()(trng.base_key(SEED, device="cpu"), torch.from_numpy(slots))
+    to = ts.batch_fn(emit_reads=False)(trng.base_key(SEED, device="cpu"),
+                                       torch.from_numpy(slots))
     for f in FIELDS:
         np.testing.assert_array_equal(np.asarray(getattr(jo, f)).astype(np.int64),
                                       getattr(to, f).numpy().astype(np.int64), err_msg=f)
@@ -208,8 +209,8 @@ def test_native_emitter_matches_numpy_spec(fixture):
                                       trng.SITE_UNALIGNED_WALK, us.e_max)),
     ):
         f = CompactFetcher(BATCH, 64.0, replayer, recon_info=(SEED, stream, ht_cap))
-        h = f.dispatch(sim.batch_fn()(trng.base_key(SEED, stream, device="cpu"),
-                                      torch.from_numpy(slots)))
+        h = f.dispatch(sim.batch_fn(emit_reads=False)(trng.base_key(SEED, stream, device="cpu"),
+                                                      torch.from_numpy(slots)))
         h.slots = slots
         cb = h.fetch()
         lanes = np.nonzero(cb.valid & ~cb.cap_over)[0]
