@@ -3,9 +3,10 @@
 defaults and validation messages.  The PyTorch package runs it on the card.
 
 Ported so far: linear and circular DNA (`-dna_type circular`), KDE read
-lengths, FASTA/FASTQ with the error profile, `--resume`.  The transcriptome
-and metagenome sub-commands, and the genome options not ported yet (-hp,
---perfect, --chimeric, -med/-sd, -x, multi-host), say so and exit non-zero.
+lengths, FASTA/FASTQ with the error profile, homopolymer mode (`-hp -k`),
+`--resume`.  The transcriptome and metagenome sub-commands, and the genome
+options not ported yet (--perfect, --chimeric, -med/-sd, -x, multi-host),
+say so and exit non-zero.
 """
 
 from __future__ import annotations
@@ -119,8 +120,7 @@ def main(argv=None):
     if args.perfect and args.chimeric:
         print("\nPerfect reads cannot be chimeric\n")
         sys.exit(1)
-    for flag, what in ((args.homopolymer, "-hp"), (args.perfect, "--perfect"),
-                       (args.chimeric, "--chimeric"),
+    for flag, what in ((args.perfect, "--perfect"), (args.chimeric, "--chimeric"),
                        (median is not None, "-med/-sd"), (args.coverage is not None, "-x"),
                        (args.num_hosts > 1, "--num_hosts")):
         if flag:
@@ -134,6 +134,7 @@ def main(argv=None):
         args.output,
         args.number,
         fastq=args.fastq,
+        kmer_bias=args.KmerBias if args.homopolymer else None,
         strandness=args.strandness,
         dna_type=args.dna_type,
         min_len=args.min_len,

@@ -1,4 +1,8 @@
-// The read assembly's packed-code gather, one CUDA thread per output position.
+// The read path's two per-lane gathers, one CUDA thread per output position:
+// the packed-code gather of the fused read (gather_codes_kernel) and the plain
+// element gather of the unfused homopolymer path (gather_rows_kernel, below).
+//
+// --- gather_codes_kernel ---------------------------------------------------
 //
 // Replaces the JAX package's TPU kernel
 // ops/window_gather.py::gather_bytes_windowed (with _gather_windowed_i32):
@@ -66,7 +70,76 @@ __global__ void gather_codes_kernel(const uint8_t* __restrict__ packed,  // [B, 
   }
 }
 
+// --- gather_rows_kernel ----------------------------------------------------
+//
+// Replaces the JAX package's TPU kernel ops/pallas_gather.py::gather_u8 (with
+// _gather_i32): out[b, j] = parts[b, idx[b, j]], i.e.
+// take_along_axis(parts, idx, axis=1) with idx already clipped to the row.
+// The unfused (homopolymer-mode) read path calls it twice per batch: on the
+// ASCII reference segment in materialize_read (1-byte elements) and on the
+// packed base|class values in resize_homopolymers (2-byte elements), so the
+// kernel is a template over the element type with one entry point per width.
+// What it computes is exactly gather_u8_plain in ops/gather_cuda.py
+// (torch.gather with an int64 index).
+//
+// The TPU kernel turns the gather into two one-hot matrix products over
+// 128-byte rows of the parts buffer, because a TPU has no per-element gather,
+// and its cost grows with the row width.  On Hopper the gather is a load at a
+// computed address, so none of that is carried over.
+//
+// What bounds it on an H100: bytes.  Per position it reads a 4-byte index,
+// reads one element and writes one element.  The layout is the code gather's:
+// one block covers 1024 consecutive positions of one lane (blockIdx.y is the
+// lane), each thread four of them at a stride of 256, so the index loads and
+// the stores of a warp are contiguous; the row is read through the read-only
+// cache, where the near-contiguous indices of an edit script hit the same
+// sectors.  Indices are clamped to the row so that a bad index cannot read
+// outside the buffer (the callers clip; the plain version raises).
+
+template <typename T>
+__global__ void gather_rows_kernel(const T* __restrict__ parts,       // [B, W]
+                                   int64_t W,
+                                   const int32_t* __restrict__ idx,   // [B, L]
+                                   int64_t L,
+                                   T* __restrict__ out) {             // [B, L]
+  const int64_t b = blockIdx.y;
+  const T* prow = parts + b * W;
+  const int32_t* irow = idx + b * L;
+  T* orow = out + b * L;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kCols + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const int64_t j = j0 + k * kThreads;
+    if (j < L) {
+      int64_t s = irow[j];
+      s = s < 0 ? 0 : (s >= W ? W - 1 : s);
+      orow[j] = __ldg(prow + s);
+    }
+  }
+}
+
+template <typename T>
+int launch_gather_rows(const void* parts, int64_t W, const void* idx, int B, int64_t L,
+                       void* out, void* stream) {
+  if (B <= 0 || L <= 0) return 0;
+  const dim3 grid(static_cast<unsigned>((L + kCols - 1) / kCols), static_cast<unsigned>(B));
+  gather_rows_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(parts), W, static_cast<const int32_t*>(idx), L,
+      static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int launch_gather_u8(const void* parts, int64_t W, const void* idx, int B,
+                                int64_t L, void* out, void* stream) {
+  return launch_gather_rows<uint8_t>(parts, W, idx, B, L, out, stream);
+}
+
+extern "C" int launch_gather_u16(const void* parts, int64_t W, const void* idx, int B,
+                                 int64_t L, void* out, void* stream) {
+  return launch_gather_rows<uint16_t>(parts, W, idx, B, L, out, stream);
+}
 
 extern "C" int launch_gather_codes(const void* packed, int64_t PB, const void* src, int B,
                                    int64_t L, void* out, void* stream) {

@@ -51,7 +51,8 @@ def get_lib():
         if _build():
             lib = ctypes.CDLL(_LIB)
             for name in ("replay_walk_batch", "emit_batch_recon", "emit_batch_flat",
-                         "replay_unaligned_walk_batch", "emit_batch_recon_unaligned"):
+                         "replay_unaligned_walk_batch", "emit_batch_recon_unaligned",
+                         "emit_batch_recon_hp"):
                 getattr(lib, name).restype = ctypes.c_int64
             _lib = lib
     return _lib
@@ -412,6 +413,135 @@ class NativeEmitter:
         )
         if rc != 0:
             raise RuntimeError(f"emit_batch_recon failed rc={rc}")
+        return (
+            memoryview(self._fastx_buf)[: fw.value],
+            memoryview(self._err_buf)[: ew.value],
+        )
+
+    def emit_recon_hp(
+        self,
+        cb,  # meta-only CompactBatch (reads_flat None; ev_flat = RAW walk)
+        lanes: np.ndarray,
+        names: list,
+        g_off: np.ndarray,
+        genome_flat: np.ndarray,
+        fastq: bool,
+        write_errors: bool,
+        k: int,
+        hp_tab,  # (breaks [2*(M+1), N] f32, vals i32)
+        hp_mis_rate: float,
+        l_cap: int,
+        qual_table=None,
+        n_threads: int = 0,
+        _grow_pad=None,
+    ):
+        """Format a meta-only -hp batch: suppression, pass-1 mutation, exact
+        table resizing, assembly, qualities and the pre-resize ground-truth
+        log all reconstruct in C++ (sim/reconstruct.reconstruct_hp_lane is
+        the spec)."""
+        from ..ops import rng as rng_mod
+
+        seed, stream, ht_cap = cb.recon
+        nl = len(lanes)
+        names_packed, name_off, _ = self._pack_names(names)
+        lanes = np.ascontiguousarray(lanes, np.int64)
+
+        total = np.ascontiguousarray(cb.total[lanes], np.int64)  # pre-resize
+        head = np.ascontiguousarray(cb.head[lanes], np.int64)
+        tail = np.ascontiguousarray(cb.tail[lanes], np.int64)
+        middle = np.ascontiguousarray(cb.middle_ref[lanes], np.int64)
+        rev = np.ascontiguousarray(cb.rev[lanes], np.uint8)
+        slots = np.ascontiguousarray(np.asarray(cb.slots)[lanes], np.int64)
+        n_ev = np.ascontiguousarray(cb.n_events[lanes], np.int64)
+        ev_off = np.ascontiguousarray(cb.ev_off[lanes], np.int64)
+        start_pos = np.ascontiguousarray(cb.pos[lanes], np.int64)
+
+        hp_breaks = np.ascontiguousarray(hp_tab[0], np.float32)
+        hp_vals = np.ascontiguousarray(hp_tab[1], np.int32)
+        tabM = hp_breaks.shape[0] // 2 - 1
+        tabN = hp_breaks.shape[1]
+
+        if fastq:
+            assert qual_table is not None
+            q_breaks = np.ascontiguousarray(qual_table[0], np.float32)
+            q_vals = np.ascontiguousarray(qual_table[1], np.int32)
+            qK = q_breaks.shape[1]
+        else:
+            q_breaks = np.zeros((5, 1), np.float32)
+            q_vals = np.zeros((5, 1), np.int32)
+            qK = 1
+
+        name_lens = np.diff(name_off)
+        # pre-resize totals + a growth pad bound the final record; the C++
+        # range returns 1 when a lane outgrows its pad and we retry larger
+        pad = np.maximum(256, total // 4) if _grow_pad is None else _grow_pad
+        ubf = np.zeros(nl + 1, np.int64)
+        ubf[1:] = np.cumsum(name_lens + (total + pad) * (2 if fastq else 1) + 16)
+        ube = np.zeros(nl + 1, np.int64)
+        if write_errors:
+            used = int((ev_off + n_ev).max()) if nl else 0
+            lens = ((cb.ev_flat[:used] >> np.uint32(17)) & np.uint32(0x1FFF)).astype(np.int64)
+            csum = np.zeros(used + 1, np.int64)
+            np.cumsum(lens, out=csum[1:])
+            ev_len_sum = csum[ev_off + n_ev] - csum[ev_off]
+            ube[1:] = np.cumsum(n_ev * (name_lens + 52) + 2 * ev_len_sum)
+
+        if self._fastx_buf.size < ubf[nl]:
+            self._fastx_buf = np.empty(int(ubf[nl] * 1.3) + 64, np.uint8)
+        if self._err_buf.size < ube[nl] + 64:
+            self._err_buf = np.empty(int(ube[nl] * 1.3) + 64, np.uint8)
+        if n_threads <= 0:
+            n_threads = min(4, os.cpu_count() or 1)
+
+        fw = ctypes.c_int64(0)
+        ew = ctypes.c_int64(0)
+        rc = self.lib.emit_batch_recon_hp(
+            ctypes.c_int64(seed), ctypes.c_int64(stream),
+            ctypes.c_int64(rng_mod.SITE_IUPAC), ctypes.c_int64(rng_mod.SITE_INS_BASE),
+            ctypes.c_int64(rng_mod.SITE_HOMOPOLYMER),
+            ctypes.c_int64(rng_mod.SITE_HP_QUAL), ctypes.c_int64(rng_mod.SITE_HP_MIS_BASE),
+            ctypes.c_int64(rng_mod.SITE_HEAD_TAIL), ctypes.c_int64(rng_mod.SITE_QUAL),
+            ctypes.c_int64(ht_cap), ctypes.c_int64(k), ctypes.c_int64(l_cap),
+            ctypes.c_double(float(np.float32(hp_mis_rate))),
+            ctypes.c_int64(nl),
+            _ptr(slots, ctypes.c_int64),
+            names_packed.ctypes.data_as(ctypes.c_char_p),
+            _ptr(name_off, ctypes.c_int64),
+            _ptr(middle, ctypes.c_int64),
+            _ptr(head, ctypes.c_int64),
+            _ptr(tail, ctypes.c_int64),
+            _ptr(rev, ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(cb.ev_flat), ctypes.c_uint32),
+            _ptr(ev_off, ctypes.c_int64),
+            _ptr(n_ev, ctypes.c_int64),
+            _ptr(genome_flat, ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(g_off, np.int64), ctypes.c_int64),
+            _ptr(start_pos, ctypes.c_int64),
+            _ptr(ubf, ctypes.c_int64),
+            _ptr(ube, ctypes.c_int64),
+            _ptr(self._fastx_buf, ctypes.c_char),
+            ctypes.byref(fw),
+            _ptr(self._err_buf, ctypes.c_char),
+            ctypes.byref(ew),
+            ctypes.c_int32(1 if fastq else 0),
+            ctypes.c_int32(1 if write_errors else 0),
+            _ptr(hp_breaks, ctypes.c_float),
+            _ptr(hp_vals, ctypes.c_int32),
+            ctypes.c_int64(tabM), ctypes.c_int64(tabN),
+            _ptr(q_breaks, ctypes.c_float),
+            _ptr(q_vals, ctypes.c_int32),
+            ctypes.c_int64(qK),
+            ctypes.c_int32(n_threads),
+        )
+        if rc == 1:
+            bigger = pad * 4
+            return self.emit_recon_hp(
+                cb, lanes, names, g_off, genome_flat, fastq,
+                write_errors, k, hp_tab, hp_mis_rate, l_cap,
+                qual_table=qual_table, n_threads=n_threads, _grow_pad=bigger,
+            )
+        if rc != 0:
+            raise RuntimeError(f"emit_batch_recon_hp failed rc={rc}")
         return (
             memoryview(self._fastx_buf)[: fw.value],
             memoryview(self._err_buf)[: ew.value],

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from . import gather_cuda, rng
+from .gather_cuda import pack_codes
 
 CLASS_MATCH, CLASS_MIS, CLASS_INS = 0, 1, 2
 QCLASS_HT = 3
@@ -69,15 +70,88 @@ class GatherMap(NamedTuple):
     """Per-output-base construction recipe.
 
     src:    [B, L_read] int32 — source ref index, or -1 for inserted bases.
+    src_left: [B, L_read] int32 — the uncensored shift map: for inserted
+        positions this resolves to the ref base just LEFT of the insertion
+        point (used by homopolymer extension to replicate the run base).
     qclass: [B, L_read] int32 — CLASS_MATCH / CLASS_MIS / CLASS_INS.
     valid:  [B, L_read] bool — j < read length.
     read_len: [B] int32.
     """
 
     src: torch.Tensor
+    src_left: torch.Tensor
     qclass: torch.Tensor
     valid: torch.Tensor
     read_len: torch.Tensor
+
+
+def build_gather_map(
+    events_pos2x: torch.Tensor,  # [B, E] int32
+    events_type: torch.Tensor,  # [B, E] int32 (0=mis 1=ins 2=del)
+    events_len: torch.Tensor,  # [B, E] int32
+    events_valid: torch.Tensor,  # [B, E] bool
+    middle_ref: torch.Tensor,  # [B] int32
+    l_read: int,  # output capacity; also bounds ref length
+    dedup_ins: bool = True,
+) -> GatherMap:
+    """Gather map of the aligned walk's edit script, in READ coordinates."""
+    B = events_pos2x.shape[0]
+    L = l_read
+    dev = events_pos2x.device
+
+    events_len = effective_lens(events_pos2x, events_type, events_len, events_valid,
+                                dedup_ins)
+    is_mis = events_valid & (events_type == 0)
+    is_ins = events_valid & (events_type == 1)
+    is_del = events_valid & (events_type == 2)
+
+    start = events_pos2x // 2  # mis/del start (pos2x even)
+    ins_before = (events_pos2x + 1) // 2  # insertion target index
+
+    # Per-event READ-coordinate starts via cumulative sums over the (small)
+    # event axis: read_start(e) = ref_start(e) - dels_before(e) + ins_before(e).
+    dlen = torch.where(is_del, events_len, 0)
+    ilen = torch.where(is_ins, events_len, 0)
+    prior_del = _cumsum(dlen) - dlen
+    prior_ins = _cumsum(ilen) - ilen
+    ref_start = torch.where(is_ins, ins_before, start)
+    rpos = ref_start - prior_del + prior_ins  # [B, E]
+
+    # Everything else lives in READ coordinates, built from E-sized scatters
+    # and [B, L] cumsums only:
+    #   ins/mis events occupy read spans [rpos, rpos + len);
+    #   deletions are zero-width points at rpos carrying weight len.
+    def span_mask(flag):
+        f = flag.to(_I32)
+        diff = _add_at(L + 1, rpos, f)
+        diff.scatter_add_(1, (rpos + events_len).clamp(0, L).long(), -f)
+        return _cumsum(diff[:, :L]) > 0
+
+    ins_mask = span_mask(is_ins)  # read positions holding inserted bases
+    mis_mask = span_mask(is_mis)  # read positions holding substituted bases
+
+    del_pts = _add_at(L + 1, rpos, dlen)
+    D = _cumsum(del_pts[:, :L])  # deleted ref bases before-or-at j
+    I = _cumsum(ins_mask.to(_I32))  # inserted read bases <= j
+
+    j_idx = torch.arange(L, dtype=_I32, device=dev)[None, :].expand(B, L)
+    # For a kept read position j, its source ref index is j shifted by the
+    # net indel displacement accumulated so far.
+    src_kept = j_idx - I + D
+    src = torch.where(ins_mask, -1, src_kept)
+    # within an insertion span the same algebra resolves to (insertion point
+    # - 1), i.e. the ref base to the left — keep it for hp extensions
+    src_left = torch.where(ins_mask, src_kept - 1, src_kept)
+    cls = torch.where(ins_mask, CLASS_INS, torch.where(mis_mask, CLASS_MIS, CLASS_MATCH)).to(_I32)
+
+    tot_del = dlen.sum(dim=1)
+    tot_ins = ilen.sum(dim=1)
+    read_len = (middle_ref - tot_del + tot_ins).to(_I32)
+
+    valid = j_idx < read_len[:, None]
+    src = torch.where(valid, src, -1)
+    return GatherMap(src=src.to(_I32), src_left=src_left.to(_I32), qclass=cls, valid=valid,
+                     read_len=read_len)
 
 
 def presentation_cap(l_read: int) -> int:
@@ -171,6 +245,7 @@ def build_unaligned_map(
     qclass = torch.where(misr, CLASS_MIS, torch.where(insr, CLASS_INS, CLASS_MATCH)).to(_I32)
     gm = GatherMap(
         src=torch.where(valid & ~insr, src, -1),
+        src_left=src,
         qclass=qclass,
         valid=valid,
         read_len=read_len,
@@ -180,12 +255,7 @@ def build_unaligned_map(
 
 def _pack_codes4(ascii_seq: torch.Tensor) -> torch.Tensor:
     """[B, L] ASCII -> [B, ceil(L/4)] packed 2-bit codes (4/byte, LE)."""
-    B, L = ascii_seq.shape
-    pad = (-L) % 4
-    if pad:
-        ascii_seq = torch.nn.functional.pad(ascii_seq, (0, pad))
-    c = _ascii_to_code(ascii_seq).reshape(B, (L + pad) // 4, 4)
-    return c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)
+    return pack_codes(_ascii_to_code(ascii_seq))
 
 
 # random_bases draws over (A, T, C, G) — np.random.choice order
@@ -358,11 +428,14 @@ def materialize_read(
 
     Substitutions pick uniformly among the 3 non-identical bases
     (mutate_read, simulator.py:1965-1978); insertions uniformly among 4
-    (simulator.py:1986-1995).
+    (simulator.py:1986-1995).  The reference-byte gather is the CUDA kernel
+    of ops/gather_cuda on the card.  Every caller here extracts its segment
+    per byte at offset 0, so the JAX package's optional per-lane ``src_offset``
+    (chunked extraction) has no counterpart.
     """
     L = gm_src.shape[1]
     src = gm_src.clamp(0, L - 1).clamp(0, ref_seg.shape[1] - 1)
-    code = _ascii_to_code(torch.gather(ref_seg, 1, src.long()))
+    code = _ascii_to_code(gather_cuda.gather_u8(ref_seg, src))
 
     ins_code = torch.floor(u_ins * 4.0).to(torch.uint8).clamp_max(3)
     if under_ins is not None:

@@ -1,4 +1,6 @@
-"""The packed-code read gather (csrc/gather.cu) and its plain PyTorch version.
+"""The read path's gathers (csrc/gather.cu) and their plain PyTorch versions:
+the packed-code gather of the fused read and the element gather of the
+unfused (homopolymer-mode) path.
 
 `gather_codes(packed, src)` returns, per lane b and position j, the 2-bit
 code ``src[b, j]`` of the lane's packed reference row (4 codes per byte, code
@@ -12,6 +14,14 @@ does not depend on a window: the JAX package's output is window-invariant by
 construction (lanes that overflow the window are re-run without it), and on
 the CPU it runs the window-free ``take_along_axis`` branch that the plain
 version here reproduces.
+
+`gather_u8(parts, idx)` is ``take_along_axis(parts, idx, axis=1)`` on 1-byte
+or 2-byte elements with ``idx`` already clipped to the row: the plain version
+(`gather_u8_plain`, a torch.gather) for CPU tensors, the second kernel of
+csrc/gather.cu for CUDA tensors, counted in ``gather_u8.launches`` (and per
+element width in ``gather_u8.launches_by_width``).  It
+replaces the JAX package's one-hot TPU gather, whose packed-code variant is
+`gather_codes_unpacked` here: `pack_codes` followed by the packed-code kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +40,9 @@ def _bind(lib):
     lib.launch_gather_codes.argtypes = [p, ctypes.c_int64, p, ctypes.c_int, ctypes.c_int64,
                                         p, p]
     lib.launch_gather_codes.restype = ctypes.c_int
+    for fn in (lib.launch_gather_u8, lib.launch_gather_u16):
+        fn.argtypes = [p, ctypes.c_int64, p, ctypes.c_int, ctypes.c_int64, p, p]
+        fn.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("gather.cu", _bind)
@@ -74,3 +87,69 @@ def gather_codes(packed: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
 
 
 gather_codes.launches = 0
+
+
+def pack_codes(codes: torch.Tensor) -> torch.Tensor:
+    """[B, W] 2-bit codes -> [B, ceil(W/4)] packed uint8 bytes (code k of
+    byte w is bits [2k, 2k+2); base index = 4w + k)."""
+    B, W = codes.shape
+    pad = (-W) % 4
+    if pad:
+        codes = torch.nn.functional.pad(codes, (0, pad))
+    c = codes.to(torch.uint8).reshape(B, (W + pad) // 4, 4)
+    return c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)
+
+
+def gather_codes_unpacked(codes: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """take_along_axis(codes, idx, axis=1) for 2-bit codes: 4-per-byte packing,
+    then the packed-code gather.  codes: [B, W] integers 0..3; idx int32,
+    clipped to [0, W).  Returns [B, L] int32."""
+    return gather_codes(pack_codes(codes), idx.to(torch.int32)).to(torch.int32)
+
+
+def gather_u8_plain(parts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """torch.gather with an int64 index: the kernel's reference (it raises on
+    an index outside the row)."""
+    return torch.gather(parts, 1, idx.long())
+
+
+_ROW_LAUNCHERS = {1: "launch_gather_u8", 2: "launch_gather_u16"}
+
+
+def gather_u8(parts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """parts [B, W] of 1-byte (uint8) or 2-byte (int16, uint16) elements, idx
+    [B, L] int32 in [0, W) -> out[b, j] = parts[b, idx[b, j]]: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if not idx.is_cuda:
+        return gather_u8_plain(parts, idx)
+    if parts.device != idx.device:
+        raise ValueError(f"gather_u8: parts is on {parts.device}, idx on {idx.device}")
+    launcher = _ROW_LAUNCHERS.get(parts.element_size())
+    if launcher is None or parts.dtype.is_floating_point or idx.dtype != torch.int32:
+        raise ValueError(f"gather_u8: needs 1- or 2-byte integer parts and int32 idx, got "
+                         f"{parts.dtype} and {idx.dtype}")
+    if parts.dim() != 2 or idx.dim() != 2 or parts.shape[0] != idx.shape[0]:
+        raise ValueError(f"gather_u8: shapes {tuple(parts.shape)} and {tuple(idx.shape)} "
+                         "are not [B, W] and [B, L]")
+    B, L = idx.shape
+    W = parts.shape[1]
+    if B > MAX_LANES or W == 0:
+        raise ValueError(f"gather_u8: B={B} (at most {MAX_LANES}), W={W} (at least 1)")
+    lib = LIBRARY.load()
+    parts = parts.contiguous()
+    idx = idx.contiguous()
+    out = torch.empty((B, L), dtype=parts.dtype, device=idx.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(idx.device).cuda_stream)
+    rc = getattr(lib, launcher)(ctypes.c_void_p(parts.data_ptr()), W,
+                                ctypes.c_void_p(idx.data_ptr()), B, L,
+                                ctypes.c_void_p(out.data_ptr()), stream)
+    if rc != 0:
+        raise RuntimeError(f"gather kernel launch failed: cudaError {rc}")
+    gather_u8.launches += 1
+    width = parts.element_size()
+    gather_u8.launches_by_width[width] = gather_u8.launches_by_width.get(width, 0) + 1
+    return out
+
+
+gather_u8.launches = 0
+gather_u8.launches_by_width = {}  # element bytes (1 or 2) -> launches at that width

@@ -55,6 +55,15 @@ def complement(seq: torch.Tensor) -> torch.Tensor:
     return _COMP.to(seq.device)[seq.long()]
 
 
+_CHOICE_ASCII = torch.tensor(list(b"ATCG"), dtype=torch.uint8)
+
+
+def random_bases(u: torch.Tensor) -> torch.Tensor:
+    """uniforms -> ASCII bases, uniform over A/T/C/G (np.random.choice order)."""
+    idx = torch.floor(u * 4.0).to(torch.int32).clamp_max(3)
+    return _CHOICE_ASCII.to(u.device)[idx.long()]
+
+
 def reverse_complement(seq: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Per-lane reverse complement of the valid prefix; padding stays 0."""
     L = seq.shape[1]

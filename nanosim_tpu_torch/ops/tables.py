@@ -11,6 +11,9 @@ uniform -> compare/count -> gather, fully batched:
 * Truncated log-normal base qualities (model_base_qualities.py:9-20) —
   exact f32 inverse-CDF breakpoints (build_qual_breakpoints).
 * KDE length models — fitted points + bandwidth.
+* Homopolymer run resizing (mutate_homo, simulator.py:618-705) — exact f32
+  u-space breakpoints (build_hp_breakpoints), held as plain tensors in
+  SimTables.
 
 The numpy table builders are copies of the JAX package's; the classes hold
 torch tensors on an explicit device and compute the same counts as its
@@ -312,6 +315,157 @@ def _build_qual_breakpoints_compute(params: dict, classes) -> tuple:
         br[i, : len(b)] = b
         vl[i, : len(v)] = v
     return br, vl
+
+
+HP_M_TAB = 1024  # tabulated run-length cap for the resize sampler
+
+
+def build_hp_breakpoints_from_vecs(mu_at, mu_cg, sd_at, sd_cg,
+                                   m_tab: int = HP_M_TAB):
+    """Exact f32 u-space inverse-CDF tables for homopolymer run resizing.
+
+    Reference semantics (mutate_homo, simulator.py:618-705): a run of length
+    m resizes to round(max(Normal(mu(m), sd(m)), 0)).  The normal draw is
+    replaced by a uniform u and an exact inverse-CDF table so the integer
+    result is a pure f32-comparison function of u — identical on every
+    device, in numpy and in the C++ mirror (a float32 erfinv measurably
+    differs between backends; same hazard build_qual_breakpoints closed for
+    base qualities).
+
+    The new-size step function in f64 (the defining semantics):
+        n(u) = int(round_half_even(max(mu + sd * ndtri(clip(u)), 0.0)))
+    with mu = const + alpha1*m + beta1*max(m - bp1, 0), sd = max(i + s*m, 0)
+    evaluated in f64 from the profile's f64 regression parameters.  Uniform
+    draws are exactly the grid {j * 2^-23} (the uniform's bit construction),
+    so breaks[row, t] is the smallest grid value whose n reaches
+    vals[row, t]; sampling is count(breaks <= u) - 1.
+
+    Runs longer than m_tab use the m_tab row (a documented deviation: real
+    nanopore homopolymers are far below 1024 bases, and a bounded table keeps
+    the device shapes static).
+
+    Returns (breaks [2*(m_tab+1), N] f32 rows [AT..., CG...], vals i32).
+    """
+    from scipy.special import ndtri
+
+    J = 1 << 23
+    ms = np.arange(m_tab + 1, dtype=np.float64)
+
+    def mu_of(par):
+        return par[0] + par[1] * ms + par[2] * np.maximum(ms - par[3], 0.0)
+
+    mu = np.concatenate([mu_of(np.asarray(mu_at, np.float64)),
+                         mu_of(np.asarray(mu_cg, np.float64))])
+    sd_at = np.asarray(sd_at, np.float64)
+    sd_cg = np.asarray(sd_cg, np.float64)
+    sd = np.concatenate([sd_at[0] + sd_at[1] * ms, sd_cg[0] + sd_cg[1] * ms])
+    sd = np.maximum(sd, 0.0)
+    R = mu.shape[0]
+
+    def val_at(j, mu_v, sd_v):
+        q = np.clip(j * (1.0 / J), 1e-300, 1.0 - 1e-16)
+        return np.round(np.maximum(mu_v + sd_v * ndtri(q), 0.0)).astype(np.int64)
+
+    v_lo = val_at(np.zeros(R), mu, sd)
+    v_hi = val_at(np.full(R, J - 1, np.float64), mu, sd)
+    counts = v_hi - v_lo
+    total = int(counts.sum())
+    if total > 20_000_000:
+        raise ValueError(
+            f"homopolymer breakpoint table too large ({total} transitions); "
+            "profile sd regression is degenerate"
+        )
+
+    # flatten all (row, target value) pairs; one vectorized 23-step binary
+    # search finds the smallest grid index whose n reaches each target
+    row_of = np.repeat(np.arange(R), counts)
+    offs = np.concatenate([np.arange(1, c + 1) for c in counts]) if total else np.zeros(0, np.int64)
+    v_t = v_lo[row_of] + offs
+    mu_f = mu[row_of]
+    sd_f = sd[row_of]
+    lo = np.zeros(total, np.int64)
+    hi = np.full(total, J - 1, np.int64)
+    for _ in range(24):
+        mid = (lo + hi) >> 1
+        pred = val_at(mid.astype(np.float64), mu_f, sd_f) >= v_t
+        hi = np.where(pred, mid, hi)
+        lo = np.where(pred, lo, mid + 1)
+
+    # group per row; duplicate grid indices (n jumping >1 per u step) keep
+    # only the largest value — count(breaks <= u) already lands on the last
+    # equal break, so dropping the shadowed entries just tightens the table
+    row_entries = [[(np.float32(0.0), int(v))] for v in v_lo]
+    for t in range(total):
+        r = int(row_of[t])
+        b = np.float32(lo[t] * (1.0 / J))
+        ent = row_entries[r]
+        if ent[-1][0] == b:
+            ent[-1] = (b, int(v_t[t]))
+        else:
+            ent.append((b, int(v_t[t])))
+    N = max(len(e) for e in row_entries)
+    breaks = np.full((R, N), 2.0, np.float32)
+    vals = np.zeros((R, N), np.int32)
+    for r, ent in enumerate(row_entries):
+        breaks[r, : len(ent)] = [b for b, _ in ent]
+        vals[r, : len(ent)] = [v for _, v in ent]
+    return breaks, vals
+
+
+def _hp_param_vecs(hp_params):
+    """HomopolymerParams -> (mu_at, mu_cg, sd_at, sd_cg) f64 vectors."""
+    def pw_vec(d):
+        bps = sorted(k for k in d if "breakpoint" in k)
+        betas = sorted(k for k in d if "beta" in k)
+        if len(bps) != 1 or len(betas) != 1:
+            raise ValueError("device hp path supports exactly one breakpoint")
+        return np.asarray(
+            [d["const"], d["alpha1"], d[betas[0]], d[bps[0]]], np.float64
+        )
+
+    lr = lambda d: np.asarray([d["intercept"], d["slope"]], np.float64)
+    return (pw_vec(hp_params.pw["AT"]), pw_vec(hp_params.pw["CG"]),
+            lr(hp_params.lr["AT"]), lr(hp_params.lr["CG"]))
+
+
+def build_hp_breakpoints(hp_params, m_tab: int = HP_M_TAB):
+    """Disk-cached wrapper around :func:`build_hp_breakpoints_from_vecs`."""
+    import hashlib
+    import os
+
+    from ..profiles.ecdf import _breakpoint_cache_dir
+
+    mu_at, mu_cg, sd_at, sd_cg = _hp_param_vecs(hp_params)
+    h = hashlib.sha256(b"hpbp-v1")
+    for a in (mu_at, mu_cg, sd_at, sd_cg):
+        h.update(repr([float(x) for x in a]).encode())
+    h.update(str(m_tab).encode())
+    d = _breakpoint_cache_dir()
+    path = os.path.join(d, "hp" + h.hexdigest()[:24] + ".npz")
+    try:
+        z = np.load(path)
+        return z["breaks"], z["vals"]
+    except Exception:
+        pass
+    br, vl = build_hp_breakpoints_from_vecs(mu_at, mu_cg, sd_at, sd_cg, m_tab)
+    try:
+        os.makedirs(d, exist_ok=True)
+        tmp = path + f".{os.getpid()}.tmp.npz"
+        np.savez(tmp, breaks=br, vals=vl)
+        os.replace(tmp, path)
+    except Exception:
+        pass
+    return br, vl
+
+
+def hp_resize_lookup(breaks: np.ndarray, vals: np.ndarray, is_at, m, u):
+    """Numpy twin of the device table lookup (sampling side): n for uniform u
+    drawn for a run of length m in pool AT (is_at) or CG."""
+    R = breaks.shape[0]
+    M = R // 2 - 1
+    row = (0 if is_at else M + 1) + min(int(m), M)
+    cnt = int(np.searchsorted(breaks[row], np.float32(u), side="right"))
+    return int(vals[row, cnt - 1])
 
 
 @dataclasses.dataclass

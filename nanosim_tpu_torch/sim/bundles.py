@@ -8,7 +8,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.tables import EcdfDevice, KdeDevice, MixtureDevice, QualDevice, TransErrorDevice
+from ..ops.tables import (EcdfDevice, KdeDevice, MixtureDevice, QualDevice, TransErrorDevice,
+                          build_hp_breakpoints)
 from ..profiles.profile import ReadProfile
 
 
@@ -27,14 +28,26 @@ class SimTables(NamedTuple):
     kde_gap: Optional[KdeDevice]
     qual: Optional[QualDevice]
     strandness_rate: torch.Tensor  # scalar f32
+    # homopolymer mode (None unless the profile was loaded for -hp): the
+    # in-run mismatch rate and the exact f32 u-space inverse-CDF resize
+    # tables ([2*(M+1), N] rows AT then CG; ops/tables.build_hp_breakpoints)
+    hp_mis_rate: float = 0.0
+    hp_breaks: Optional[torch.Tensor] = None  # f32
+    hp_vals: Optional[torch.Tensor] = None  # int32
 
 
 def build_tables(p: ReadProfile, device) -> SimTables:
-    if p.hp_params is not None:
-        raise NotImplementedError("homopolymer (-hp) tables are not ported yet")
-
     def opt(f, x):
         return None if x is None else f(x, device)
+
+    hp_kw = {}
+    if p.hp_params is not None:
+        hp_br, hp_vl = build_hp_breakpoints(p.hp_params)
+        hp_kw = dict(
+            hp_mis_rate=float(p.hp_params.mis_rate),
+            hp_breaks=torch.as_tensor(np.asarray(hp_br, np.float32), device=device),
+            hp_vals=torch.as_tensor(np.asarray(hp_vl, np.int32), device=device),
+        )
 
     return SimTables(
         first_match=opt(EcdfDevice.from_table, p.first_match),
@@ -49,6 +62,7 @@ def build_tables(p: ReadProfile, device) -> SimTables:
         kde_gap=opt(KdeDevice.from_model, p.kde_gap),
         qual=opt(QualDevice.from_params, p.base_quals),
         strandness_rate=torch.tensor(np.float32(p.strandness_rate), device=device),
+        **hp_kw,
     )
 
 
@@ -65,7 +79,8 @@ def tables_from_numpy(d: dict, device) -> SimTables:
     """SimTables from a dict of numpy arrays keyed ``"<field>.<attr>"`` (and
     ``"strandness_rate"``), e.g. the leaves of another implementation's table
     bundle, so that two implementations can sample from identical tables.
-    A field with no keys is None."""
+    A field with no keys is None; the homopolymer tables are the plain keys
+    ``"hp_breaks"``, ``"hp_vals"`` and ``"hp_mis_rate"``."""
     kw = {}
     for field, cls in _TABLE_CLASSES.items():
         attrs = {f.name for f in dataclasses.fields(cls)}
@@ -79,6 +94,10 @@ def tables_from_numpy(d: dict, device) -> SimTables:
         kw[field] = cls(**vals)
     kw["strandness_rate"] = torch.as_tensor(
         np.array(d["strandness_rate"], np.float32), device=device)
+    if "hp_breaks" in d:
+        kw["hp_mis_rate"] = float(d["hp_mis_rate"])
+        kw["hp_breaks"] = torch.as_tensor(np.array(d["hp_breaks"], np.float32), device=device)
+        kw["hp_vals"] = torch.as_tensor(np.array(d["hp_vals"], np.int32), device=device)
     return SimTables(**kw)
 
 

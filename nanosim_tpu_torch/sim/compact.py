@@ -11,7 +11,10 @@ used prefixes:
             event (pos2x | len << 17 | type << 30), each lane starting at a
             64-word (256-byte) aligned offset;
   quals  -> (read-emitting programs, FASTQ) raw phred+33 bytes, 256-byte
-            aligned offsets.
+            aligned offsets;
+  prehp  -> (homopolymer mode off the reconstruction route) the pass-1
+            mutated middle before run resizing, 2-bit codes like the reads;
+            the metadata then has one more column, the pass-1 length.
 
 The host replays each lane's walk and checks it against the per-lane event
 checksum in the metadata, so the event stream normally stays on the device.
@@ -20,7 +23,9 @@ recomputes them from the metadata instead of transferring them.
 
 Capacities are static.  The packer reports the needed chunk counts in the
 metadata tail; a batch that overflows its capacity is repacked larger.
-The buffer layout is the JAX package's (sim/compact.py there), byte for byte.
+The buffer layout is the JAX package's (sim/compact.py there), byte for byte;
+the prehp stream is this package's own (the JAX package moves the pre-resize
+middle through a second, padded transfer format).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.apply_errors import _pack_codes4
+from ..ops.apply_errors import _pack_codes4, effective_lens
 
 CHUNK = 256  # bytes per aligned chunk; events use 64 u32 words
 
@@ -100,10 +105,13 @@ def compact_pack(
     quals=None,  # [B, L] uint8 phred+33 (FASTQ)
     nr_cap: int = 1,  # read capacity, CHUNK-byte chunks
     nq_cap: int = 1,  # qual capacity, CHUNK-byte chunks
+    prehp=None,  # [B, l_cap] uint8 ASCII pass-1 middle (homopolymer mode)
+    np_cap: int = 1,  # prehp capacity, CHUNK-byte chunks
 ) -> torch.Tensor:
-    """ONE uint8 transfer buffer: [ meta (B+1 rows x META_COLS i64 LE; last row
-    = needed chunk counts) | flat 2-bit reads (read given) | flat events
-    (with_events) | flat quals (quals given) ]."""
+    """ONE uint8 transfer buffer: [ meta (B+1 rows x META_COLS i64 LE, one more
+    column with prehp; last row = needed chunk counts) | flat 2-bit reads
+    (read given) | flat events (with_events) | flat quals (quals given) | flat
+    2-bit pre-resize middles (prehp given) ]."""
     B = valid.shape[0]
     dev = valid.device
     v64 = valid.long()
@@ -111,6 +119,7 @@ def compact_pack(
     need_r = torch.zeros((), dtype=torch.int64, device=dev)
     need_e = torch.zeros((), dtype=torch.int64, device=dev)
     need_q = torch.zeros((), dtype=torch.int64, device=dev)
+    need_p = torch.zeros((), dtype=torch.int64, device=dev)
     if read is not None:
         packed = _pack_codes4(read)
         padw = (-packed.shape[1]) % CHUNK
@@ -130,6 +139,25 @@ def compact_pack(
         q = torch.nn.functional.pad(quals, (0, padq)) if padq else quals
         flat_q, need_q = _chunk_compact(q, v64 * total.long(), nq_cap)
         parts.append(flat_q)
+    extra_cols = []
+    if prehp is not None:
+        # the pass-1 length: middle_ref - deleted + inserted bases of the
+        # (suppression-zeroed) events, as build_gather_map counts them
+        live = (torch.arange(ev_len.shape[1], dtype=torch.int64, device=dev)[None, :]
+                < n_events.long()[:, None])
+        eff = effective_lens(ev_pos2x, ev_type, ev_len, live).long()
+        zero = torch.zeros_like(eff)
+        pre_len = (middle_ref.long()
+                   - torch.where(live & (ev_type == 2), eff, zero).sum(dim=1)
+                   + torch.where(live & (ev_type == 1), eff, zero).sum(dim=1))
+        pre_len = pre_len.clamp(0, prehp.shape[1])
+        packed_p = _pack_codes4(prehp)
+        padp = (-packed_p.shape[1]) % CHUNK
+        if padp:
+            packed_p = torch.nn.functional.pad(packed_p, (0, padp))
+        flat_p, need_p = _chunk_compact(packed_p, v64 * ((pre_len + 3) // 4), np_cap)
+        parts.append(flat_p)
+        extra_cols.append(pre_len)
 
     if with_checksum:
         # order-sensitive 32-bit checksum over the packed event words (the
@@ -142,10 +170,10 @@ def compact_pack(
     else:
         cksum = torch.zeros(B, dtype=torch.int64, device=dev)
     cols = [valid, total, head, tail, middle_ref, l_new, chrom, local_pos,
-            is_rev, n_events, cap_over, m_ref_init, cksum]
-    meta = torch.stack([c.long() for c in cols], dim=1)  # [B, 13]
-    tail_row = torch.zeros((1, META_COLS), dtype=torch.int64, device=dev)
-    tail_row[0, :3] = torch.stack([need_r, need_e, need_q])
+            is_rev, n_events, cap_over, m_ref_init, cksum] + extra_cols
+    meta = torch.stack([c.long() for c in cols], dim=1)  # [B, 13 or 14]
+    tail_row = torch.zeros((1, len(cols)), dtype=torch.int64, device=dev)
+    tail_row[0, :4] = torch.stack([need_r, need_e, need_q, need_p])
     meta = torch.cat([meta, tail_row])
     meta_bytes = meta.contiguous().view(torch.uint8).reshape(-1)  # little-endian
     return torch.cat([meta_bytes] + [p.reshape(-1) for p in parts])
@@ -164,7 +192,7 @@ class CompactBatch:
         "pos", "rev", "n_events", "cap_over",
         "reads_flat", "read_off", "ev_flat", "ev_off", "quals_flat", "qual_off",
         "pack_reads", "needs", "m_ref", "ev_checksum", "slots", "recon",
-        "finish",
+        "finish", "prehp_flat", "prehp_off", "prehp_len",
     )
 
     def __getitem__(self, k):  # dict-style access for writer compatibility
@@ -184,17 +212,22 @@ def decode_compact(
     with_events: bool,
     pack_reads: bool = True,
     with_reads: bool = True,
+    np_cap: int = 0,  # prehp capacity; 0 = the buffer holds no prehp stream
 ):
     """Parse the fused transfer buffer.  Returns (CompactBatch, ok) where
-    ok=False means a stream overflowed its capacity (repack needed)."""
-    meta_n = (B + 1) * META_COLS * 8
-    meta = buf[:meta_n].view("<i8").reshape(B + 1, META_COLS)
-    need_r, need_e, need_q = int(meta[B, 0]), int(meta[B, 1]), int(meta[B, 2])
-    if need_r > nr_cap or need_e > ne_cap or need_q > nq_cap:
-        return (need_r, need_e, need_q), False
+    ok=False means a stream overflowed its capacity (repack needed); the
+    first value is then the needed chunk counts (reads, events, quals,
+    prehp)."""
+    n_cols = META_COLS + (1 if np_cap else 0)
+    meta_n = (B + 1) * n_cols * 8
+    meta = buf[:meta_n].view("<i8").reshape(B + 1, n_cols)
+    needs = tuple(int(x) for x in meta[B, :4])
+    if (needs[0] > nr_cap or needs[1] > ne_cap or needs[2] > nq_cap
+            or (np_cap and needs[3] > np_cap)):
+        return needs, False
 
     cb = CompactBatch()
-    cb.needs = (need_r, need_e, need_q)
+    cb.needs = needs
     m = meta[:B]
     cb.valid = m[:, 0].astype(bool)
     cb.total = m[:, 1]
@@ -240,9 +273,18 @@ def decode_compact(
         qch = (v * cb.total + CHUNK - 1) // CHUNK
         cb.qual_off = (np.cumsum(qch) - qch) * CHUNK
         cb.quals_flat = buf[off : off + nq_cap * CHUNK]
+        off += nq_cap * CHUNK
     else:
         cb.qual_off = np.zeros(B, np.int64)
         cb.quals_flat = np.zeros(1, np.uint8)
+
+    if np_cap:
+        cb.prehp_len = m[:, META_COLS]
+        pch = (v * ((cb.prehp_len + 3) // 4) + CHUNK - 1) // CHUNK
+        cb.prehp_off = (np.cumsum(pch) - pch) * CHUNK
+        cb.prehp_flat = buf[off : off + np_cap * CHUNK]
+    else:
+        cb.prehp_len = cb.prehp_off = cb.prehp_flat = None
 
     return cb, True
 
@@ -251,11 +293,15 @@ def decode_compact(
 _DEC_LUT = np.frombuffer(b"ACGT", np.uint8)[(np.arange(256)[:, None] >> (2 * np.arange(4))) & 3]
 
 
+def _decode_2bit(flat: np.ndarray, off: int, n: int) -> np.ndarray:
+    return _DEC_LUT[flat[off : off + (n + 3) // 4]].reshape(-1)[:n]
+
+
 def decode_reads_ascii(cb: CompactBatch, lanes) -> list:
     """Decode selected lanes back to ASCII arrays (tests and checks)."""
-    out = []
-    for b in lanes:
-        t = int(cb.total[b])
-        o = int(cb.read_off[b])
-        out.append(_DEC_LUT[cb.reads_flat[o : o + (t + 3) // 4]].reshape(-1)[:t])
-    return out
+    return [_decode_2bit(cb.reads_flat, int(cb.read_off[b]), int(cb.total[b])) for b in lanes]
+
+
+def decode_prehp_ascii(cb: CompactBatch, b: int) -> np.ndarray:
+    """One lane's pre-resize middle (homopolymer mode) as ASCII."""
+    return _decode_2bit(cb.prehp_flat, int(cb.prehp_off[b]), int(cb.prehp_len[b]))

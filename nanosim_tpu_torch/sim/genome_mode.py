@@ -11,6 +11,13 @@ then, in the read-emitting program only:
   reference gather -> IUPAC resolve -> fused mutation + head/tail + strand
   flip (packed-code gather: CUDA kernel) -> qualities
 
+or, in homopolymer mode (kmer_bias set), the unfused read-emitting program:
+
+  per-byte reference gather -> IUPAC resolve -> suppression of errors in
+  >= k runs -> gather map + materialization (byte gather: CUDA kernel) ->
+  run resizing (16-bit gather: same kernel) -> head | middle | tail assembly
+  with the strand flip (CUDA kernel) -> qualities
+
 On the default route the device runs the meta-only program: about 100 bytes
 per lane go to the host, where the C++ emitter replays each lane's walk,
 checks it against the device checksum and reconstructs the read bytes
@@ -31,7 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops import apply_errors, error_walk, rng, seqops, xla_math
+from ..ops import apply_errors, assemble_cuda, error_walk, homopolymer, rng, seqops, xla_math
 from ..profiles.profile import ReadProfile
 from . import extract
 from .bundles import (FULL_EVENT_SLACK, SimTables, build_tables, estimate_mean_aligned,
@@ -65,6 +72,9 @@ class BatchOut(NamedTuple):
     # the read-emitting program only (None in the meta-only program):
     read: Optional[torch.Tensor] = None  # [B, L] uint8 ASCII, final orientation
     quals: Optional[torch.Tensor] = None  # [B, L] uint8 phred+33 (zeros unless fastq)
+    # homopolymer mode only: the pass-1 mutated middle before run resizing
+    # (the ground-truth error log slices its seq bases from it)
+    read_prehp: Optional[torch.Tensor] = None  # [B, l_cap] uint8 ASCII
 
 
 def device_of(device) -> torch.device:
@@ -79,7 +89,9 @@ def device_of(device) -> torch.device:
 def want_recon(circular_dna: bool) -> bool:
     """Whether a pass runs the meta-only program with host reconstruction:
     linear DNA unless NANOSIM_TPU_RECON=0 (the reconstruction covers linear
-    DNA only; everything else runs the read-emitting program)."""
+    DNA only; everything else runs the read-emitting program).  Homopolymer
+    mode reconstructs too: a simulator with kmer_bias always holds the hp
+    tables the host needs (its constructor refuses a profile without them)."""
     return not circular_dna and os.environ.get("NANOSIM_TPU_RECON", "1") != "0"
 
 
@@ -134,6 +146,52 @@ def draw_ht(sk, tables: SimTables, ht_cap: int):
     return remainder, head, tail, ok
 
 
+def assemble_read(
+    read_mid: torch.Tensor,  # [B, l_cap] uint8 mutated middle
+    qclass_mid: torch.Tensor,  # [B, l_cap] int32
+    l_new: torch.Tensor,
+    head: torch.Tensor,
+    tail: torch.Tensor,
+    sk: torch.Tensor,
+    tables: SimTables,
+    l_out: int,
+    ht_cap: int,
+    fastq: bool,
+):
+    """Head bases + middle + tail bases; per-base classes; strand flip; quals.
+
+    Mirrors simulator.py:1421-1443: head/tail random bases, ht-class
+    qualities at both flanks, reverse complement at 1 - strandness.
+
+    Bases and classes are packed into 16-bit values (base | class << 8), the
+    mutated middle and the random head/tail pool; ops/assemble_cuda places
+    them (the CUDA kernel on the card), the strand flip and the class
+    reversal riding along.
+    """
+    total = head + l_new + tail
+
+    u_ht = rng.uniform_per_slot(sk, rng.SITE_HEAD_TAIL, (ht_cap,))
+    ht_bases = seqops.random_bases(u_ht)  # [B, ht_cap]
+
+    packed_mid = read_mid.to(torch.int16) | (qclass_mid.to(torch.int16) << 8)
+    packed_ht = ht_bases.to(torch.int16) | (apply_errors.QCLASS_HT << 8)
+
+    u_strand = rng.uniform_per_slot(sk, rng.SITE_STRAND)
+    is_rev = u_strand > tables.strandness_rate
+    out = assemble_cuda.assemble_rolls(packed_mid, packed_ht, head, l_new, total, is_rev, l_out)
+    read = (out & 0xFF).to(torch.uint8)
+
+    quals = torch.zeros_like(read)
+    if fastq:
+        cls = (out >> 8).to(torch.int32)
+        u_q = rng.uniform_per_slot(sk, rng.SITE_QUAL, (l_out,))
+        q = tables.qual.sample(cls, u_q)
+        in_read = torch.arange(l_out, device=read.device)[None, :] < total[:, None]
+        quals = torch.where(in_read, (q + 33).to(torch.uint8), 0).to(torch.uint8)
+
+    return read, quals, total, is_rev
+
+
 def genome_batch(
     base_key: torch.Tensor,
     slots: torch.Tensor,  # [B] int64 global slot ids
@@ -149,6 +207,8 @@ def genome_batch(
     fastq: bool = False,
     circular_dna: bool = False,
     emit_reads: bool = True,
+    kmer_bias: Optional[int] = None,
+    hp_r_max: int = 256,
 ) -> BatchOut:
     """The aligned-read batch program (KDE lengths): the read-emitting
     program, or with emit_reads=False the meta-only one.
@@ -156,6 +216,12 @@ def genome_batch(
     Both accept the same lanes: the meta-only program's final length
     filters run on the DEDUP-aware l_new that the read materialization
     produces.
+
+    kmer_bias (homopolymer mode, `-hp -k`): the read-emitting program leaves
+    the fused path for suppression -> gather map -> materialization -> run
+    resizing (at most hp_r_max runs per lane) -> assembly; the meta-only
+    program is unchanged but for the final length filter, which homopolymer
+    mode does not apply.
     """
     sk = rng.slot_keys(base_key, slots)
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device=slots.device)
@@ -187,7 +253,8 @@ def genome_batch(
     u_strand = rng.uniform_per_slot(sk, rng.SITE_STRAND)
     is_rev = u_strand > tables.strandness_rate
 
-    read = quals = None
+    read = quals = read_prehp = None
+    ev_len = walk.events_len
     if not emit_reads:
         eff = apply_errors.effective_lens(walk.events_pos2x, walk.events_type,
                                           walk.events_len, walk.events_valid)
@@ -196,6 +263,39 @@ def genome_batch(
         isum = torch.where(walk.events_valid & (walk.events_type == 1), eff, zero).sum(dim=1)
         l_new = (middle_ref - dsum + isum).to(torch.int32)
         total = head + l_new + tail
+        # -hp: suppression and resizing happen host-side on the
+        # reconstruction route
+    elif kmer_bias is not None:
+        # the hp run analysis needs the aligned per-byte extraction
+        ref_seg = extract.gather_segments(genome, chrom, local_pos, middle_ref, l_cap)
+        u_iupac, u_mis = rng.uniform2_per_slot(sk, rng.SITE_IUPAC, (l_cap,))
+        ref_seg = seqops.resolve_iupac(ref_seg, u_iupac)
+        # drop error events overlapping >= k homopolymer runs
+        # (mutate_read, simulator.py:1920-1950); zero-length events are
+        # no-ops downstream and skipped by the log writers
+        keep = homopolymer.suppress_hp_errors(
+            ref_seg, middle_ref, walk.events_pos2x, walk.events_type, ev_len,
+            walk.events_valid, kmer_bias)
+        ev_len = torch.where(keep, ev_len, 0)
+        gm = apply_errors.build_gather_map(
+            walk.events_pos2x, walk.events_type, ev_len, walk.events_valid, middle_ref, l_cap)
+        u_ins, _ = rng.uniform2_per_slot(sk, rng.SITE_INS_BASE, (l_cap,))
+        read_prehp = apply_errors.materialize_read(gm.src, gm.qclass, gm.valid, ref_seg,
+                                                   u_mis, u_ins)
+        # resize homopolymer runs in the mutated read (mutate_homo,
+        # simulator.py:618-705)
+        read_mid, qclass_mid, l_new, hp_ok = homopolymer.resize_homopolymers(
+            sk, read_prehp, gm.qclass, gm.read_len, tables.hp_breaks, tables.hp_vals,
+            tables.hp_mis_rate, kmer_bias, hp_r_max, l_cap)
+        # run-table overflow (and post-resize middles beyond the l_cap
+        # buffer) are CAPACITY conditions, not statistical rejections: the
+        # reference has no such limits, so the lane is re-run through the
+        # rescue program (whose r_max = l_cap // k + 1 can never overflow) to
+        # keep read numbering reference-exact
+        cap_over |= ~hp_ok | (l_new > l_cap)
+        valid &= hp_ok & (l_new <= l_cap)
+        read, quals, total, _ = assemble_read(
+            read_mid, qclass_mid, l_new, head, tail, sk, tables, l_out, ht_cap, fastq)
     else:
         # chunked extraction for linear DNA (whole 256-byte rows, the
         # intra-chunk offset folded into the code gather); circular wrap
@@ -225,15 +325,21 @@ def genome_batch(
             q = tables.qual.sample(qclass, u_q)
             in_read = torch.arange(l_out, device=read.device)[None, :] < total[:, None]
             quals = torch.where(in_read, (q + 33).to(torch.uint8), 0).to(torch.uint8)
-    valid &= (total >= min_len) & (total.double() <= max_len)
+    # final length filter (simulator.py:1429-1430).  Homopolymer mode must
+    # NOT re-filter on the post-resize total: the reference's min/max check
+    # runs on error_list's pre-mutation total only (simulator.py:1367-1368)
+    # and mutate_homo never re-checks — that filter already ran on total0.
+    if kmer_bias is None:
+        valid &= (total >= min_len) & (total.double() <= max_len)
     cap_over |= total > l_out
     valid &= ~cap_over
     return BatchOut(
         valid=valid, total_len=total, head=head, tail=tail, middle_ref=middle_ref,
         l_new=l_new, chrom=chrom, local_pos=local_pos, is_reversed=is_rev,
-        ev_pos2x=walk.events_pos2x, ev_type=walk.events_type, ev_len=walk.events_len,
+        ev_pos2x=walk.events_pos2x, ev_type=walk.events_type, ev_len=ev_len,
         ev_valid=walk.events_valid, n_events=walk.n_events,
         capacity_overflow=cap_over, m_ref_init=m_ref, read=read, quals=quals,
+        read_prehp=read_prehp,
     )
 
 
@@ -244,7 +350,9 @@ class OverflowRescueWriter:
     SLOT ORDER before emission, so the lean budget is invisible in the
     output.  On the host-reconstruction route the rescued lanes are
     reconstructed like every other lane (the recon design makes that the same
-    bytes the read-emitting program would give).
+    bytes the read-emitting program would give).  In homopolymer mode the
+    rescue always materializes on the device (emit_reads=True on both
+    routes): that program's run table cannot overflow.
     """
 
     RESCUE_BATCH = 64
@@ -406,11 +514,11 @@ class ResumeState:
 class GenomeSimulator:
     """Host driver: batches, slot accounting, acceptance, output.
 
-    This slice covers KDE lengths with FASTA or FASTQ and the error profile:
-    linear DNA on the host-reconstruction route, and the read-emitting
-    program for circular DNA (a single chromosome) and for
-    NANOSIM_TPU_RECON=0.  --perfect, -hp and the median/sd lognormal lengths
-    are not ported yet."""
+    Covers KDE lengths with FASTA or FASTQ and the error profile: linear DNA
+    on the host-reconstruction route, and the read-emitting program for
+    circular DNA (a single chromosome) and for NANOSIM_TPU_RECON=0; with
+    kmer_bias (homopolymer mode, `-hp -k`) on both routes.  --perfect and the
+    median/sd lognormal lengths are not ported yet."""
 
     def __init__(
         self,
@@ -422,10 +530,13 @@ class GenomeSimulator:
         min_len: int = 50,
         max_len: float = float("inf"),
         batch: int = 256,
+        kmer_bias: Optional[int] = None,
         device="cuda",
     ):
         if fastq and profile.base_quals is None:
             raise ValueError("fastq=True needs a profile loaded with fastq=True")
+        if kmer_bias is not None and profile.hp_params is None:
+            raise ValueError("kmer_bias needs a profile loaded with homopolymer=True")
         check_circular(genome, circular_dna)
         self.device = device_of(device)
         self.genome_host = genome
@@ -436,26 +547,37 @@ class GenomeSimulator:
         self.fastq = fastq
         self.circular_dna = circular_dna
         self.batch = batch
+        self.kmer_bias = kmer_bias
 
         self.l_cap = plan_ref_capacity(profile, max_len, genome.max_chrom)
         self.ht_cap = plan_ht_capacity(profile)
         self.l_out = -(-(self.l_cap + self.ht_cap) // 1024) * 1024
         self.e_max = plan_event_budget(profile, self.l_cap)
+        # homopolymer mode: run-table capacity of the primary program (lanes
+        # holding more runs of length >= k are re-run by the rescue)
+        self.hp_r_max = max(128, self.l_cap // 32)
 
         self.tables = build_tables(profile, self.device)
         self.genome_dev = extract.GenomeDevice.from_packed(genome, self.device)
 
     def batch_fn(self, full_events: bool = False, emit_reads: bool = True):
         """The batch program: read-emitting, or meta-only (host
-        reconstruction) with emit_reads=False; full_events=True uses the full
-        (rescue-grade) event budget."""
+        reconstruction) with emit_reads=False; full_events=True is the
+        rescue-grade program: the full event budget and, in homopolymer mode,
+        a run table that cannot overflow (a length-l_cap read holds at most
+        l_cap // k runs of length >= k)."""
         e_max = (plan_event_budget(self.profile, self.l_cap, slack=FULL_EVENT_SLACK)
                  if full_events else self.e_max)
+        if full_events and self.kmer_bias is not None:
+            hp_r_max = self.l_cap // max(self.kmer_bias, 1) + 1
+        else:
+            hp_r_max = self.hp_r_max
         return functools.partial(
             genome_batch, genome=self.genome_dev, tables=self.tables,
             l_cap=self.l_cap, l_out=self.l_out, ht_cap=self.ht_cap, e_max=e_max,
             min_len=self.min_len, max_len=self.max_len, fastq=self.fastq,
             circular_dna=self.circular_dna, emit_reads=emit_reads,
+            kmer_bias=self.kmer_bias, hp_r_max=hp_r_max,
         )
 
     def run(self, n_reads: int, writer, seed: int = 0, max_batches: Optional[int] = None,
@@ -465,6 +587,8 @@ class GenomeSimulator:
         Linear DNA runs the meta-only program and reconstructs the reads on
         the host unless NANOSIM_TPU_RECON=0; circular DNA always runs the
         read-emitting program (the reconstruction covers linear DNA only).
+        Homopolymer mode runs on both; its overflow rescue always goes
+        through the device-materialized program.
 
         resume_state: path to a (slot cursor, accepted) checkpoint file; if
         it exists the run continues from it (callers must open the output
@@ -478,10 +602,14 @@ class GenomeSimulator:
         est_events = est_bases / (estimate_mean_match(self.profile) + 1.0)
         # the replayed walk gives the host the events: on the recon route
         # for the read bytes, on the read-emitting route for the error log
+        # (but for homopolymer mode, whose log needs the device's own
+        # suppression-zeroed events)
         replayer = WalkReplayer(
             self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_WALK,
             e_guard=plan_event_budget(self.profile, self.l_cap, slack=FULL_EVENT_SLACK),
         )
+
+        hp = self.kmer_bias is not None
 
         def make_fetcher(lazy_replay=False):
             return CompactFetcher(self.batch, est_events, replayer,
@@ -489,8 +617,17 @@ class GenomeSimulator:
                                   lazy_replay=lazy_replay, with_reads=not recon,
                                   fastq=self.fastq, est_bases=est_bases)
 
-        fetcher = make_fetcher(lazy_replay=True)
-        wrapped = OverflowRescueWriter(self, writer, base, make_fetcher, emit_reads=not recon)
+        def make_hp_fetcher():
+            # -hp without reconstruction: the device-materialized read, the
+            # device's own (suppression-zeroed) events and the pre-resize
+            # middle buffer for the ground-truth log
+            return CompactFetcher(self.batch, est_events, None, with_reads=True,
+                                  fastq=self.fastq, est_bases=est_bases, with_prehp=True)
+
+        fetcher = make_hp_fetcher() if hp and not recon else make_fetcher(lazy_replay=True)
+        wrapped = OverflowRescueWriter(self, writer, base,
+                                       make_hp_fetcher if hp else make_fetcher,
+                                       emit_reads=hp or not recon)
         fn = self.batch_fn(emit_reads=not recon)
 
         def make_batch(slot_start):

@@ -137,6 +137,30 @@ class ErrorLogWriter:
         self.f.close()
 
 
+_ETYPE_NAMES = ("mis", "ins", "del")
+
+
+def event_read_positions(ev_pos2x, ev_type, ev_len):
+    """One lane's per-event (key, read-coordinate start, effective length).
+
+    read_start(e) = ref_start(e) - (deleted bases before e) + (inserted bases
+    before e); events arrive in ascending position order from the walk.
+    Overwritten duplicate insertions (a successor insertion with the same
+    position key) count as length 0.
+    """
+    ev_len = ev_len.copy()
+    is_ins = ev_type == 1
+    dead = np.zeros(len(ev_len), bool)
+    dead[:-1] = is_ins[:-1] & is_ins[1:] & (ev_pos2x[1:] == ev_pos2x[:-1])
+    ev_len[dead] = 0
+    dlen = np.where(ev_type == 2, ev_len, 0)
+    ilen = np.where(is_ins, ev_len, 0)
+    key = (ev_pos2x + 1) // 2  # ceil of the reference's float key
+    ref_start = np.where(is_ins, key, ev_pos2x // 2)
+    rpos = ref_start - (np.cumsum(dlen) - dlen) + (np.cumsum(ilen) - ilen)
+    return key, rpos, ev_len
+
+
 class GenomeBatchWriter:
     """Accept/number/emit a genome-mode batch (aligned reads).
 
@@ -144,7 +168,10 @@ class GenomeBatchWriter:
     (and FASTQ qualities) are reconstructed host-side from the genome, the
     replayed walk events and the counter RNG by the C++ emitter
     (sim/reconstruct.py is its numpy spec); from the read-emitting program
-    they arrive 2-bit packed, and the emitter decodes and formats them."""
+    they arrive 2-bit packed, and the emitter decodes and formats them.
+    In homopolymer mode the reconstruction is the -hp emitter's, and the
+    device-materialized route's ground-truth log is composed here from the
+    pre-resize middles."""
 
     def __init__(self, fastx: FastxWriter, error_log=None):
         self.fastx = fastx
@@ -193,22 +220,38 @@ class GenomeBatchWriter:
             fin()  # lazy walk replay (idempotent), in the emission worker
         g = sim.genome_host
         names = self._lane_names(sim, cb, lanes, accepted_so_far)
+        lanes = np.asarray(lanes, np.int64)
         chrom = cb.chrom[lanes]
+        hp = getattr(sim, "kmer_bias", None) is not None
         kw = {}
-        if cb.reads_flat is None:
-            emit = self._emitter.emit_recon
-            if sim.fastq:
-                q = sim.tables.qual
-                kw["qual_table"] = (q.breaks.cpu().numpy(), q.vals.cpu().numpy())
+        if sim.fastq and cb.reads_flat is None:
+            q = sim.tables.qual
+            kw["qual_table"] = (q.breaks.cpu().numpy(), q.vals.cpu().numpy())
+        if hp and cb.reads_flat is None:
+            # meta-only -hp batch: suppression, pass-1 mutation, exact run
+            # resizing and the pre-resize ground-truth log all replay
+            # host-side (sim/reconstruct.reconstruct_hp_lane is the spec)
+            fastx_mv, err_mv = self._emitter.emit_recon_hp(
+                cb, lanes, names, g_off=g.offsets[chrom],
+                genome_flat=g.flat, fastq=sim.fastq, write_errors=with_events,
+                k=sim.kmer_bias,
+                hp_tab=(sim.tables.hp_breaks.cpu().numpy(), sim.tables.hp_vals.cpu().numpy()),
+                hp_mis_rate=sim.tables.hp_mis_rate, l_cap=sim.l_cap, **kw,
+            )
         else:
-            emit = self._emitter.emit_flat
-        fastx_mv, err_mv = emit(
-            cb, np.asarray(lanes, np.int64), names,
-            g_off=g.offsets[chrom], g_len=g.lengths[chrom],
-            g_circ=np.ascontiguousarray(g.circular[chrom], np.uint8),
-            genome_flat=g.flat, fastq=sim.fastq,
-            write_errors=with_events, **kw,
-        )
+            emit = self._emitter.emit_recon if cb.reads_flat is None else self._emitter.emit_flat
+            # -hp rewrites homopolymer runs AFTER the logged pass-1 mutation,
+            # so the log of a device-materialized -hp batch is cut from the
+            # pre-resize middles instead (_hp_log_bytes)
+            fastx_mv, err_mv = emit(
+                cb, lanes, names,
+                g_off=g.offsets[chrom], g_len=g.lengths[chrom],
+                g_circ=np.ascontiguousarray(g.circular[chrom], np.uint8),
+                genome_flat=g.flat, fastq=sim.fastq,
+                write_errors=with_events and not hp, **kw,
+            )
+            if hp and with_events:
+                err_mv = self._hp_log_bytes(sim, cb, lanes, names)
         io = getattr(self, "io_pool", None)
         if io is not None:
             # hand the composed bytes to the io stage (copies out of the
@@ -230,6 +273,54 @@ class GenomeBatchWriter:
         if with_events:
             self.error_log.write_bytes(err_mv)
         return len(lanes)
+
+    def _hp_log_bytes(self, sim, cb, lanes, names) -> bytes:
+        """Pre-hp ground-truth log of a device-materialized -hp batch: the
+        device's events (suppressed ones carry zero length and are skipped),
+        seq bases cut from the pass-1 middles, ref bases from the genome
+        (wrapping on a circular chromosome); rows per read in reverse
+        position order, as mutate_read logs them."""
+        from .compact import decode_prehp_ascii
+
+        g = sim.genome_host
+        rows = []
+        for name, b in zip(names, lanes):
+            ne = int(cb.n_events[b])
+            if ne == 0:
+                continue
+            o = int(cb.ev_off[b])
+            w = cb.ev_flat[o : o + ne]
+            keys_v, rpos_v, lens_v = event_read_positions(
+                (w & np.uint32(0x1FFFF)).astype(np.int64),
+                (w >> np.uint32(30)).astype(np.int64),
+                ((w >> np.uint32(17)) & np.uint32(0x1FFF)).astype(np.int64),
+            )
+            types_v = (w >> np.uint32(30)).tolist()
+            mid = decode_prehp_ascii(cb, b).tobytes().decode()
+            goff = int(g.offsets[cb.chrom[b]])
+            glen = int(g.lengths[cb.chrom[b]])
+            circ = bool(g.circular[cb.chrom[b]])
+            spos = int(cb.pos[b])
+            lane_rows = []
+            for k, t, ln, rp in zip(keys_v.tolist(), types_v, lens_v.tolist(), rpos_v.tolist()):
+                if ln == 0:
+                    continue
+                if t == 1:
+                    ref = "-" * ln
+                    seq = mid[rp : rp + ln]
+                else:
+                    st = spos + k
+                    if circ and st % glen + ln > glen:
+                        idxs = (np.arange(st, st + ln) % glen) + goff
+                        ref = g.flat[idxs].tobytes().decode()
+                    else:
+                        if circ:
+                            st %= glen
+                        ref = g.flat[goff + st : goff + st + ln].tobytes().decode()
+                    seq = mid[rp : rp + ln] if t == 0 else "-" * ln
+                lane_rows.append(f"{name}\t{k}\t{_ETYPE_NAMES[t]}\t{ln}\t{ref}\t{seq}\n")
+            rows.extend(reversed(lane_rows))
+        return "".join(rows).encode()
 
 
 class CompactHandle:
@@ -260,6 +351,11 @@ class CompactFetcher:
     replayer, no events reach the host (the unaligned pass writes no error
     log).
 
+    With with_prehp (homopolymer mode off the reconstruction route) the
+    buffer also carries the device's own events, whose lengths the
+    suppression zeroed, and the 2-bit pre-resize middles the ground-truth
+    log is cut from; there is no replay on that route.
+
     A lane whose replay fails its checksum gets its events from the device
     instead (an exact second transfer); such lanes are counted in
     RUN_STATS.checksum_fallback_lanes, which on a healthy run stays 0: the
@@ -278,13 +374,17 @@ class CompactFetcher:
 
     def __init__(self, batch: int, est_events: float, replayer, recon_info=None,
                  lazy_replay: bool = False, with_reads: bool = False, fastq: bool = False,
-                 est_bases: float = 0.0):
+                 est_bases: float = 0.0, with_prehp: bool = False):
         from . import compact as _c
 
         if replayer is not None and not replayer.available:
             raise RuntimeError("the walk replayer needs native/fastwriter.cpp built with g++")
         if replayer is None and not with_reads:
             raise RuntimeError("host reconstruction needs the native walk replayer")
+        if with_prehp and (replayer is not None or not with_reads):
+            raise ValueError("the pre-resize middles travel with the reads and the device's "
+                             "own events, without a replayer")
+        self.with_prehp = with_prehp
         self._c = _c
         self.replayer = replayer
         self.recon_info = recon_info
@@ -302,7 +402,9 @@ class CompactFetcher:
                        if with_reads else 1)
         self.nq_cap = (self._tier(int(batch * (est_bases / ch + 1) * self.FIRST_MARGIN))
                        if self.transfer_quals else 1)
-        # event capacity of the rare fallback transfer, in CHUNK-byte chunks
+        self.np_cap = self.nr_cap if with_prehp else 0
+        # event capacity (the rare fallback transfer; every batch with
+        # with_prehp), in CHUNK-byte chunks
         self.ne_cap = self._tier(int(batch * (est_events * 4.0 / ch + 1) * self.FIRST_MARGIN))
 
     @staticmethod
@@ -311,7 +413,8 @@ class CompactFetcher:
         return max(256, -(-n // 256) * 256)
 
     def _dispatch(self, out, force_events: bool = False):
-        caps = (self.nr_cap, self.ne_cap if force_events else 1, self.nq_cap)
+        force_events = force_events or self.with_prehp
+        caps = (self.nr_cap, self.ne_cap if force_events else 1, self.nq_cap, self.np_cap)
         buf = self._c.compact_pack(
             out.valid, out.total_len, out.head, out.tail, out.middle_ref,
             out.l_new, out.chrom, out.local_pos, out.is_reversed, out.n_events,
@@ -321,6 +424,7 @@ class CompactFetcher:
             read=out.read if self.with_reads else None,
             quals=out.quals if self.transfer_quals else None,
             nr_cap=caps[0], nq_cap=caps[2],
+            prehp=out.read_prehp if self.with_prehp else None, np_cap=caps[3],
         )
         return buf, caps
 
@@ -331,15 +435,19 @@ class CompactFetcher:
     def _decode(self, buf_dev, B, caps, with_events):
         return self._c.decode_compact(
             buf_dev.cpu().numpy(), B, caps[0], caps[1], caps[2], fastq=self.transfer_quals,
-            with_events=with_events, with_reads=self.with_reads)
+            with_events=with_events or self.with_prehp, with_reads=self.with_reads,
+            np_cap=caps[3])
 
     def _fetch(self, h: CompactHandle):
         B = h.out.valid.shape[0]
         cb, ok = self._decode(h.buf_dev, B, h.caps, with_events=False)
         if not ok:
-            need_r, _, need_q = cb
+            need_r, need_e, need_q, need_p = cb
             self.nr_cap = max(self.nr_cap, self._tier(int(need_r * 1.1) + 1))
             self.nq_cap = max(self.nq_cap, self._tier(int(need_q * 1.1) + 1))
+            if self.with_prehp:
+                self.ne_cap = max(self.ne_cap, self._tier(int(need_e * 1.15) + 1))
+                self.np_cap = max(self.np_cap, self._tier(int(need_p * 1.1) + 1))
             self._locked = True
             buf_dev, caps = self._dispatch(h.out)
             cb, ok = self._decode(buf_dev, B, caps, with_events=False)
@@ -348,11 +456,13 @@ class CompactFetcher:
         elif not self._locked:
             # shrink to the first batch's need: the full capacity crosses
             # the link, so slack is wasted bandwidth
-            need_r, _, need_q = cb.needs
+            need_r, _, need_q, need_p = cb.needs
             if self.with_reads:
                 self.nr_cap = self._tier(int(need_r * self.LOCKED_MARGIN) + 1)
             if self.transfer_quals:
                 self.nq_cap = self._tier(int(need_q * self.LOCKED_MARGIN) + 1)
+            if self.with_prehp:
+                self.np_cap = self._tier(int(need_p * self.LOCKED_MARGIN) + 1)
             self._locked = True
         cb.slots = getattr(h, "slots", None)
         if not self.with_reads:

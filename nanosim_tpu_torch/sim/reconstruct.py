@@ -15,10 +15,11 @@ This module is the NUMPY REFERENCE implementation — the spec that
 native/fastwriter.cpp's reconstruction mirrors — and the fallback when the
 native library is unavailable.
 
-Scope: the aligned-genome fast path (linear DNA, no -hp, not perfect),
-FASTA and FASTQ (base qualities are counter-addressed draws through the
-exact QualDevice breakpoint table, so they reconstruct exactly like bases);
-other paths keep the device read materialization.
+Scope: the aligned-genome path on linear DNA (not perfect), with and without
+-hp (reconstruct_hp_lane), FASTA and FASTQ (base qualities are
+counter-addressed draws through the exact QualDevice breakpoint table, so
+they reconstruct exactly like bases), and the unaligned pass; other paths
+keep the device read materialization.
 """
 
 from __future__ import annotations
@@ -372,6 +373,317 @@ def reconstruct_batch(cb, lanes, genome, seed: int, stream: int, ht_cap: int,
             genome.flat, int(genome.offsets[chrom]), int(cb.pos[b]), events,
             int(cb.head[b]), int(cb.tail[b]), int(cb.l_new[b]),
             int(cb.total[b]), bool(cb.rev[b]), keys, ht_cap,
+            qual_table=qual_table,
+        ))
+    return out
+
+
+def reconstruct_segment(genome_flat, g_off, spos, events, l_new, keys):
+    """Pre-reverse middle bytes + classes of the unfused read path:
+    aligned-event semantics with MIDDLE-indexed mutation draws (the path
+    materializes via build_gather_map + materialize_read: iupac = SITE_IUPAC
+    lo @ ref index, mis = SITE_IUPAC hi @ middle index, ins = SITE_INS_BASE
+    lo @ middle index).  Returns (ascii bytes, classes)."""
+    ev_pos2x, ev_type, ev_len = events
+    ne = len(ev_pos2x)
+    eff = np.asarray(ev_len, np.int64).copy()
+    for e in range(ne - 1):
+        if (ev_type[e] == 1 and ev_type[e + 1] == 1
+                and ev_pos2x[e + 1] == ev_pos2x[e]):
+            eff[e] = 0
+    out = np.zeros(l_new, np.uint8)
+    cls = np.zeros(l_new, np.uint8)
+    raw = genome_flat[g_off + spos:]
+    i = m = 0
+
+    def matches(i0, i1, m0):
+        n = i1 - i0
+        if n <= 0:
+            return
+        codes = resolve_codes(raw[i0:i1], keys["iupac"], np.arange(i0, i1))
+        out[m0 : m0 + n] = codes
+
+    for e in range(ne):
+        t = int(ev_type[e])
+        ln = int(eff[e])
+        key = (int(ev_pos2x[e]) + 1) // 2
+        ref_start = key if t == 1 else int(ev_pos2x[e]) // 2
+        matches(i, ref_start, m)
+        m += max(ref_start - i, 0)
+        i = max(i, ref_start)
+        if ln == 0:
+            continue
+        if t == 0:  # mis
+            for x in range(ln):
+                _, hi = uniform2_at(keys["iupac"], np.asarray([m]))
+                off = min(1 + int(np.float32(hi[0]) * np.float32(3.0)), 3)
+                code = int(resolve_codes(raw[i : i + 1], keys["iupac"], np.asarray([i]))[0])
+                out[m] = (code + off) % 4
+                cls[m] = 1
+                i += 1
+                m += 1
+        elif t == 1:  # ins
+            for x in range(ln):
+                lo, _ = uniform2_at(keys["ins"], np.asarray([m]))
+                out[m] = min(int(np.float32(lo[0]) * np.float32(4.0)), 3)
+                cls[m] = 2
+                m += 1
+        else:
+            i += ln
+    matches(i, i + (l_new - m), m)
+    return _BASES[out], cls
+
+
+def _hp_runs(arr: np.ndarray, k: int):
+    """Homopolymer runs of length >= k: list of (start, end) over arr."""
+    n = len(arr)
+    if n == 0:
+        return []
+    change = np.nonzero(np.diff(arr))[0] + 1
+    starts = np.concatenate([[0], change])
+    ends = np.concatenate([change, [n]])
+    return [(int(s), int(e)) for s, e in zip(starts, ends) if e - s >= k]
+
+
+def hp_suppressed(ref_resolved: np.ndarray, events, k: int):
+    """Events overlapping >= k homopolymer runs of the RESOLVED reference
+    segment are dropped (numpy twin of ops/homopolymer.suppress_hp_errors;
+    reference mutate_read, simulator.py:1920-1950).  Returns bool[ne]."""
+    ev_pos2x, ev_type, ev_len = events
+    ne = len(ev_pos2x)
+    L = len(ref_resolved)
+    in_hp = np.zeros(L, bool)
+    for s, e in _hp_runs(ref_resolved, k):
+        in_hp[s:e] = True
+    cum = np.cumsum(in_hp.astype(np.int64))
+    out = np.zeros(ne, bool)
+    for e in range(ne):
+        t = int(ev_type[e])
+        ln = int(ev_len[e])
+        p = (int(ev_pos2x[e]) + 1) // 2
+        lo = p - 1 if t == 1 else int(ev_pos2x[e]) // 2
+        hi = (p + ln - 1) if t == 1 else (int(ev_pos2x[e]) // 2 + ln - 1)
+        lo_c = min(max(lo, 0), L - 1)
+        hi_c = min(max(hi, 0), L - 1)
+        covered = (cum[hi_c] - cum[lo_c]) > 0
+        covered = covered or (in_hp[lo_c] and lo >= 0)
+        out[e] = covered
+    return out
+
+
+def reconstruct_hp_lane(
+    genome_flat: np.ndarray,
+    g_off: int,
+    spos: int,
+    events_raw,  # (pos2x, type, len) RAW walk events, ascending
+    middle_ref: int,
+    head: int,
+    tail: int,
+    rev: bool,
+    keys,  # 'iupac', 'ins', 'hp', 'hp_qual', 'hp_mis', 'ht' (+ 'qual')
+    ht_cap: int,
+    k: int,
+    hp_tab,  # (breaks [2*(M+1), N] f32, vals i32) ops/tables.build_hp_breakpoints
+    hp_mis_rate,  # np.float32
+    l_cap: int,
+    qual_table=None,
+):
+    """Genome `-hp -k` read from (genome, raw events, counter RNG) — the
+    numpy spec native emit_batch_recon_hp mirrors, byte-identical to the
+    device path (genome_batch with kmer_bias; reference semantics:
+    mutate_read suppression simulator.py:1920-1950 + mutate_homo
+    simulator.py:618-705).
+
+    Pipeline: IUPAC-resolve the extracted segment -> drop events overlapping
+    >= k runs -> pass-1 mutation with MIDDLE-indexed draws
+    (reconstruct_segment) -> resize >= k runs of the mutated read via the
+    exact u-space table (kept prefixes keep pass-1 bases+classes, extensions
+    replicate the run base as ins-class, every position of a new run
+    mismatches with prob hp_mis_rate) -> head/tail/strand/quals.
+
+    Returns dict(read, quals, mid1, cls1, l_new2, total, log) where log is
+    (keys, types, lens, rpos) of the surviving (suppressed-zeroed) events in
+    ascending order with rpos in pass-1 coordinates.
+    """
+    ev_pos2x, ev_type, ev_len = (np.asarray(a, np.int64) for a in events_raw)
+    ne = len(ev_pos2x)
+
+    raw = genome_flat[g_off + spos : g_off + spos + middle_ref]
+    resolved = raw.copy()
+    odd = np.nonzero(~np.isin(raw, (65, 67, 71, 84)))[0]
+    if len(odd):
+        codes = resolve_codes(raw[odd], keys["iupac"], odd)
+        resolved[odd] = _BASES[codes]
+
+    supp = hp_suppressed(resolved, (ev_pos2x, ev_type, ev_len), k) if ne else np.zeros(0, bool)
+    surv = np.where(supp, 0, ev_len)
+
+    dels = int(surv[ev_type == 2].sum()) if ne else 0
+    inss = int(surv[ev_type == 1].sum()) if ne else 0
+    # reconstruct_segment dedups consecutive same-key insertions internally;
+    # replicate for the length so the buffer is exact
+    eff = surv.copy()
+    for e in range(ne - 1):
+        if (ev_type[e] == 1 and ev_type[e + 1] == 1
+                and ev_pos2x[e + 1] == ev_pos2x[e]):
+            if eff[e]:
+                inss -= int(eff[e])
+            eff[e] = 0
+    l_new1 = middle_ref - dels + inss
+
+    mid1, cls1 = reconstruct_segment(
+        genome_flat, g_off, spos, (ev_pos2x, ev_type, surv), l_new1, keys
+    )
+    mid1_arr = np.frombuffer(mid1.tobytes(), np.uint8)
+
+    # log events: surviving effective events with pass-1 read positions
+    log_keys, log_rpos = [], []
+    log_types, log_lens = [], []
+    rc = 0  # running read-coordinate shift
+    prior_del = prior_ins = 0
+    for e in range(ne):
+        t = int(ev_type[e])
+        ln = int(eff[e])
+        key = (int(ev_pos2x[e]) + 1) // 2
+        ref_start = key if t == 1 else int(ev_pos2x[e]) // 2
+        rpos = ref_start - prior_del + prior_ins
+        if ln > 0:
+            log_keys.append(key)
+            log_types.append(t)
+            log_lens.append(ln)
+            log_rpos.append(rpos)
+        if t == 1:
+            prior_ins += ln
+        elif t == 2:
+            prior_del += ln
+    del rc
+
+    # --- resize runs of the pass-1 read (exact table) ----------------------
+    breaks, vals = hp_tab
+    runs = _hp_runs(mid1_arr[:l_new1], k)
+    u_hp = uniform_at(keys["hp"], np.arange(max(len(runs), 1)))
+    from ..ops.tables import hp_resize_lookup
+
+    sizes = []
+    for ridx, (s0, e0) in enumerate(runs):
+        letter = int(mid1_arr[s0])
+        is_at = letter in (65, 84)
+        nsz = hp_resize_lookup(breaks, vals, is_at, e0 - s0, u_hp[ridx])
+        sizes.append(min(nsz, l_cap // 2))
+
+    l_new2 = l_new1 + sum(nsz - (e0 - s0) for (s0, e0), nsz in zip(runs, sizes))
+    midf = np.zeros(l_new2, np.uint8)
+    clsf = np.zeros(l_new2, np.uint8)
+    run_ptr = 0
+    p = q = 0
+    out_runs = []  # (final start, size)
+    while p < l_new1:
+        if run_ptr < len(runs) and p == runs[run_ptr][0]:
+            s0, e0 = runs[run_ptr]
+            nsz = sizes[run_ptr]
+            m_run = e0 - s0
+            kept = min(nsz, m_run)
+            midf[q : q + kept] = mid1_arr[s0 : s0 + kept]
+            clsf[q : q + kept] = cls1[s0 : s0 + kept]
+            if nsz > m_run:
+                midf[q + m_run : q + nsz] = mid1_arr[s0]
+                clsf[q + m_run : q + nsz] = 2
+            out_runs.append((q, nsz))
+            q += nsz
+            p = e0
+            run_ptr += 1
+        else:
+            midf[q] = mid1_arr[p]
+            clsf[q] = cls1[p]
+            q += 1
+            p += 1
+
+    rate32 = np.float32(hp_mis_rate)
+    for sfin, nsz in out_runs:
+        if nsz == 0:
+            continue
+        u_p = uniform_at(keys["hp_qual"], np.arange(sfin, sfin + nsz))
+        for j in range(nsz):
+            u_j = np.float32(u_p[j])
+            if np.float32(0.0) < u_j <= rate32:
+                u2 = np.float32(uniform_at(keys["hp_mis"], np.asarray([sfin + j]))[0])
+                off = 1 + min(int(u2 * np.float32(3.0)), 2)
+                midf[sfin + j] = _BASES[(_CODE.get(int(midf[sfin + j]), 0) + off) % 4]
+                clsf[sfin + j] = 1
+
+    # --- assembly: head | middle | tail, strand flip, qualities ------------
+    total = head + l_new2 + tail
+    pre = np.zeros(total, np.uint8)
+    pre[head : head + l_new2] = midf
+    if head or tail:
+        ht_jj = np.concatenate([np.arange(head), np.arange(head + l_new2, total)])
+        pool = np.where(ht_jj < head, ht_jj, ht_jj - l_new2)
+        u = uniform_at(keys["ht"], np.clip(pool, 0, ht_cap - 1))
+        choice = np.minimum(np.floor(u * np.float32(4.0)).astype(np.int32), 3)
+        pre[ht_jj] = _BASES[_CHOICE_CODE[choice]]
+
+    if rev:
+        comp = np.arange(256, dtype=np.uint8)
+        for a, b in ((65, 84), (67, 71)):
+            comp[a], comp[b] = b, a
+        read = comp[pre[::-1]]
+    else:
+        read = pre.copy()
+
+    quals = None
+    if qual_table is not None:
+        breaks_q, vals_q = qual_table
+        cls_pre = np.full(total, 3, np.uint8)
+        cls_pre[head : head + l_new2] = clsf
+        cls_out = cls_pre[::-1] if rev else cls_pre
+        u = uniform_at(keys["qual"], np.arange(total, dtype=np.int64))
+        quals = np.empty(total, np.uint8)
+        for c in range(4):
+            msk = cls_out == c
+            if msk.any():
+                cnt = np.searchsorted(breaks_q[c], u[msk], side="right")
+                quals[msk] = vals_q[c, cnt - 1].astype(np.uint8)
+        quals = quals + np.uint8(33)
+
+    return dict(
+        read=read, quals=quals, mid1=mid1_arr[:l_new1], cls1=cls1,
+        l_new2=l_new2, total=total,
+        log=(np.asarray(log_keys, np.int64), np.asarray(log_types, np.int64),
+             np.asarray(log_lens, np.int64), np.asarray(log_rpos, np.int64)),
+    )
+
+
+def reconstruct_hp_batch(cb, lanes, genome, seed: int, stream: int,
+                         ht_cap: int, k: int, hp_tab, hp_mis_rate,
+                         l_cap: int, qual_table=None):
+    """Reconstruct selected lanes of a meta-only -hp CompactBatch."""
+    from ..ops import rng
+
+    out = []
+    for b in lanes:
+        slot = int(cb.slots[b])
+        keys = {
+            "iupac": key_root(seed, stream, slot, rng.SITE_IUPAC),
+            "ins": key_root(seed, stream, slot, rng.SITE_INS_BASE),
+            "hp": key_root(seed, stream, slot, rng.SITE_HOMOPOLYMER),
+            "hp_qual": key_root(seed, stream, slot, rng.SITE_HP_QUAL),
+            "hp_mis": key_root(seed, stream, slot, rng.SITE_HP_MIS_BASE),
+            "ht": key_root(seed, stream, slot, rng.SITE_HEAD_TAIL),
+            "qual": key_root(seed, stream, slot, rng.SITE_QUAL),
+        }
+        ne = int(cb.n_events[b])
+        o = int(cb.ev_off[b])
+        w = cb.ev_flat[o : o + ne]
+        events = (
+            (w & np.uint32(0x1FFFF)).astype(np.int64),
+            (w >> np.uint32(30)).astype(np.int64),
+            ((w >> np.uint32(17)) & np.uint32(0x1FFF)).astype(np.int64),
+        )
+        chrom = int(cb.chrom[b])
+        out.append(reconstruct_hp_lane(
+            genome.flat, int(genome.offsets[chrom]), int(cb.pos[b]), events,
+            int(cb.middle_ref[b]), int(cb.head[b]), int(cb.tail[b]),
+            bool(cb.rev[b]), keys, ht_cap, k, hp_tab, hp_mis_rate, l_cap,
             qual_table=qual_table,
         ))
     return out

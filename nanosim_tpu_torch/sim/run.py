@@ -27,6 +27,7 @@ def simulate_genome(
     number: int = 20000,
     *,
     fastq: bool = False,
+    kmer_bias: Optional[int] = None,
     strandness: Optional[float] = None,
     dna_type: str = "linear",
     min_len: int = 50,
@@ -38,7 +39,8 @@ def simulate_genome(
 ) -> dict:
     """Genome-mode simulation (reference main genome branch,
     simulator.py:2226-2320): aligned then unaligned reads, linear or circular
-    DNA (circular: one chromosome).  Returns counters for reporting.  Runs on
+    DNA (circular: one chromosome); kmer_bias switches the aligned pass to
+    homopolymer mode (`-hp -k`).  Returns counters for reporting.  Runs on
     the card unless `device` says otherwise."""
     _log("Read in reference")
     genome = PackedGenome.from_fasta(ref_g, dna_type=dna_type)
@@ -47,7 +49,7 @@ def simulate_genome(
 
     _log("Read profile")
     prof = profile_mod.load_profile(model_prefix, mode="genome", fastq=fastq,
-                                    strandness=strandness)
+                                    homopolymer=kmer_bias is not None, strandness=strandness)
     n_aligned, n_unaligned = profile_mod.split_aligned_unaligned(
         [number], prof.aligned_rate, False
     )
@@ -58,7 +60,7 @@ def simulate_genome(
     _log("Start simulation of aligned reads")
     circular = dna_type == "circular"
     sim = GenomeSimulator(genome, prof, fastq=fastq, circular_dna=circular, min_len=min_len,
-                          max_len=max_len, batch=batch, device=device)
+                          max_len=max_len, batch=batch, kmer_bias=kmer_bias, device=device)
     state_path = out + "_aligned.resume.json"
     resuming = resume and os.path.exists(state_path)
     fw = output.FastxWriter(out + "_aligned_reads" + ext, fastq, append=resuming)

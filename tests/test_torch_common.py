@@ -57,18 +57,18 @@ def tables_to_numpy(t) -> dict:
         if dataclasses.is_dataclass(v):
             for f in dataclasses.fields(v):
                 d[f"{name}.{f.name}"] = np.asarray(getattr(v, f.name))
-        elif name == "strandness_rate":
+        elif name == "strandness_rate" or (name.startswith("hp_") and t.hp_breaks is not None):
             d[name] = np.asarray(v)
     return d
 
 
-def load_both(prefix: str, fastq: bool = False):
+def load_both(prefix: str, fastq: bool = False, homopolymer: bool = False):
     """(JAX profile, JAX SimTables, port SimTables on the CPU built from the
     JAX tables' arrays)."""
     from nanosim_tpu.profiles import profile as jax_profile
     from nanosim_tpu.sim import bundles as jax_bundles
 
-    prof = jax_profile.load_profile(prefix, mode="genome", fastq=fastq)
+    prof = jax_profile.load_profile(prefix, mode="genome", fastq=fastq, homopolymer=homopolymer)
     jt = jax_bundles.build_tables(prof)
     return prof, jt, torch_bundles.tables_from_numpy(tables_to_numpy(jt), "cpu")
 

@@ -1,5 +1,6 @@
-"""The packed-code read gather: its plain version on the CPU, and the CUDA
-kernel against the plain version on the card.
+"""The read path's gathers (packed codes; 1-byte and 2-byte elements): their
+plain versions on the CPU, and the CUDA kernels against the plain versions on
+the card.
 
 The card-only test imports no JAX; run it on the machine with the card with:
 python -m pytest --noconftest -m gpu tests/test_torch_gather.py
@@ -53,4 +54,55 @@ def test_gather_kernel_matches_plain_on_card():
         torch.cuda.synchronize()
         assert gather_cuda.gather_codes.launches == before + 1
         assert got.dtype == torch.uint8 and got.shape == (B, L)
+        assert torch.equal(got, want)
+
+
+def _row_inputs(B, W, L, seed, dtype):
+    """Rows of 1-byte or 2-byte elements and in-range indices that follow the
+    output position with a drift, as an edit script's gather map does."""
+    rs = np.random.default_rng(seed)
+    parts = rs.integers(0, 256 if dtype == np.uint8 else 1 << 15, (B, W)).astype(dtype)
+    drift = np.cumsum(rs.integers(-1, 2, (B, L)), axis=1)
+    idx = np.clip(rs.integers(0, 64, (B, 1)) + np.arange(L)[None, :] + drift, 0, W - 1)
+    idx[:, :2] = [0, W - 1]
+    return torch.from_numpy(parts), torch.from_numpy(idx.astype(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16])
+def test_plain_row_gather_on_cpu_matches_numpy(dtype):
+    """gather_u8 on CPU tensors is take_along_axis and launches nothing."""
+    parts, idx = _row_inputs(5, 300, 450, seed=4, dtype=dtype)
+    before = gather_cuda.gather_u8.launches
+    got = gather_cuda.gather_u8(parts, idx)
+    assert got.dtype == parts.dtype
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.take_along_axis(parts.numpy(), idx.numpy(), axis=1))
+    assert gather_cuda.gather_u8.launches == before
+
+
+def test_gather_codes_unpacked_on_cpu_matches_numpy():
+    rs = np.random.default_rng(5)
+    codes = rs.integers(0, 4, (4, 203)).astype(np.int32)
+    idx = rs.integers(0, 203, (4, 90)).astype(np.int32)
+    got = gather_cuda.gather_codes_unpacked(torch.from_numpy(codes), torch.from_numpy(idx))
+    np.testing.assert_array_equal(got.numpy(), np.take_along_axis(codes, idx, axis=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16])
+def test_row_gather_kernel_matches_plain_on_card(dtype):
+    """The CUDA element gather equals its plain PyTorch version on the card,
+    exactly, for 1-byte and 2-byte elements, at a ragged shape (B=37,
+    L=3,000, W=2,900) and a small one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the gather kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for B, W, L, seed in ((37, 2900, 3000, 6), (3, 9, 17, 7)):
+        parts, idx = (t.to(dev) for t in _row_inputs(B, W, L, seed, dtype))
+        before = gather_cuda.gather_u8.launches
+        got = gather_cuda.gather_u8(parts, idx)
+        want = gather_cuda.gather_u8_plain(parts, idx)
+        torch.cuda.synchronize()
+        assert gather_cuda.gather_u8.launches == before + 1
+        assert got.dtype == parts.dtype and got.shape == (B, L)
         assert torch.equal(got, want)

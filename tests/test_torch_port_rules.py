@@ -93,8 +93,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
 
 # genome options the port does not run yet: the CLI names them and exits 2
 NOT_PORTED_OPTIONS = {
-    "-hp": ["-hp", "-k", "6"],
     "--perfect": ["--perfect"],
+    "-hp --perfect": ["-hp", "-k", "6", "--perfect"],
     "--chimeric": ["--chimeric"],
     "-med/-sd": ["-med", "5000", "-sd", "1.0"],
     "-x": ["-x", "10"],
@@ -109,23 +109,43 @@ def test_cli_refuses_genome_options_not_ported(capsys, what):
     with pytest.raises(SystemExit) as e:
         cli.main(["genome", "-rg", "ref.fa", *NOT_PORTED_OPTIONS[what]])
     assert e.value.code == 2
-    assert f"{what} is not ported" in capsys.readouterr().err
+    assert f"{what.split()[-1]} is not ported" in capsys.readouterr().err
 
 
 def test_cli_accepts_circular_dna(tmp_path):
     """`-dna_type circular` passes the CLI and reaches the simulator, which
     asks for the card (without one it raises rather than fall back)."""
+    _cli_reaches_the_simulator(tmp_path, ["-dna_type", "circular"])
+
+
+@pytest.mark.parametrize("extra", [[], ["-dna_type", "circular", "--fastq"]],
+                         ids=["linear", "circular-fastq"])
+def test_cli_accepts_hp(tmp_path, extra):
+    """`-hp -k 6` passes the CLI and reaches the simulator."""
+    _cli_reaches_the_simulator(tmp_path, ["-hp", "-k", "6", *extra])
+
+
+def _cli_reaches_the_simulator(tmp_path, options):
     import torch
 
     from nanosim_tpu_torch import cli
     from nanosim_tpu_torch.profiles import fixtures
 
     if torch.cuda.is_available():
-        pytest.skip("a card is present: circular DNA on the card is driven by chip_smoke.py")
+        pytest.skip("a card is present: the options on the card are driven by chip_smoke.py")
     prefix = str(tmp_path / "training")
     fixtures.make_model_dir(prefix, mean_read_len=400, sd_read_len=100, n_kde_points=100)
     ref = str(tmp_path / "ref.fa")
     fixtures.make_reference_fasta(ref, [20000], seed=2)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         cli.main(["genome", "-rg", ref, "-c", prefix, "-o", str(tmp_path / "out"), "-n", "10",
-                  "-dna_type", "circular"])
+                  *options])
+
+
+def test_cli_hp_needs_a_kmer_bias(capsys):
+    from nanosim_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(["genome", "-rg", "ref.fa", "-hp"])
+    assert e.value.code == 1
+    assert "kmer bias" in capsys.readouterr().out

@@ -37,7 +37,7 @@ def _torch_tables_numpy(t) -> dict:
             for f in dataclasses.fields(v):
                 a = getattr(v, f.name)
                 d[f"{name}.{f.name}"] = a.numpy() if torch.is_tensor(a) else np.asarray(a)
-        else:
+        elif torch.is_tensor(v):  # hp_mis_rate is a plain float (0.0 without -hp)
             d[name] = v.numpy()
     return d
 
