@@ -4,9 +4,9 @@ defaults and validation messages.  The PyTorch package runs it on the card.
 
 Ported so far: linear and circular DNA (`-dna_type circular`), KDE read
 lengths, FASTA/FASTQ with the error profile, homopolymer mode (`-hp -k`),
-`--resume`.  The transcriptome and metagenome sub-commands, and the genome
-options not ported yet (--perfect, --chimeric, -med/-sd, -x, multi-host),
-say so and exit non-zero.
+chimeric reads (`--chimeric`), `--resume`.  The transcriptome and metagenome
+sub-commands, and the genome options not ported yet (--perfect, -med/-sd, -x,
+multi-host), say so and exit non-zero.
 """
 
 from __future__ import annotations
@@ -120,9 +120,8 @@ def main(argv=None):
     if args.perfect and args.chimeric:
         print("\nPerfect reads cannot be chimeric\n")
         sys.exit(1)
-    for flag, what in ((args.perfect, "--perfect"), (args.chimeric, "--chimeric"),
-                       (median is not None, "-med/-sd"), (args.coverage is not None, "-x"),
-                       (args.num_hosts > 1, "--num_hosts")):
+    for flag, what in ((args.perfect, "--perfect"), (median is not None, "-med/-sd"),
+                       (args.coverage is not None, "-x"), (args.num_hosts > 1, "--num_hosts")):
         if flag:
             _not_ported(what)
 
@@ -134,6 +133,7 @@ def main(argv=None):
         args.output,
         args.number,
         fastq=args.fastq,
+        chimeric=args.chimeric,
         kmer_bias=args.KmerBias if args.homopolymer else None,
         strandness=args.strandness,
         dna_type=args.dna_type,

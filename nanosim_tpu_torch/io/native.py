@@ -52,7 +52,8 @@ def get_lib():
             lib = ctypes.CDLL(_LIB)
             for name in ("replay_walk_batch", "emit_batch_recon", "emit_batch_flat",
                          "replay_unaligned_walk_batch", "emit_batch_recon_unaligned",
-                         "emit_batch_recon_hp"):
+                         "emit_batch_recon_hp", "emit_chimeric_recon",
+                         "emit_chimeric_batch"):
                 getattr(lib, name).restype = ctypes.c_int64
             _lib = lib
     return _lib
@@ -208,6 +209,7 @@ class NativeEmitter:
         self.lib = get_lib()
         self._fastx_buf = np.empty(8 << 20, np.uint8)
         self._err_buf = np.empty(8 << 20, np.uint8)
+        self._mid_buf = np.empty(1 << 20, np.uint8)
 
     @property
     def available(self) -> bool:
@@ -623,6 +625,139 @@ class NativeEmitter:
             raise RuntimeError(f"emit_batch_recon_unaligned failed rc={rc}")
         return memoryview(self._fastx_buf)[: fw.value]
 
+    def emit_chimeric_recon(
+        self,
+        *,
+        seed: int,
+        stream: int,
+        ht_cap: int,
+        S: int,
+        slots: np.ndarray,  # [k]
+        names: list,
+        total: np.ndarray,
+        head: np.ndarray,
+        tail: np.ndarray,
+        n_seg: np.ndarray,
+        rev: np.ndarray,  # [k] uint8
+        seg_part_off: np.ndarray,  # [k*S] flattened read-coord starts
+        seg_lnew: np.ndarray,
+        seg_mid: np.ndarray,
+        seg_goff: np.ndarray,
+        seg_spos: np.ndarray,
+        seg_ev_flat: np.ndarray,  # u32
+        seg_ev_off: np.ndarray,
+        seg_n_ev: np.ndarray,
+        gap_part_off: np.ndarray,  # [k*(S-1)]
+        gap_lnew: np.ndarray,
+        gap_mid: np.ndarray,
+        gap_goff: np.ndarray,
+        gap_spos: np.ndarray,
+        gap_ev_flat: np.ndarray,
+        gap_ev_off: np.ndarray,
+        gap_n_steps: np.ndarray,
+        genome_flat: np.ndarray,
+        fastq: bool,
+        write_errors: bool,
+        qual_table=None,
+        n_threads: int = 0,
+    ):
+        """Reconstruct + format chimeric reads (head|seg|gap|...|tail) from
+        replayed part-keyed event streams."""
+        from ..ops import rng as rng_mod
+
+        k = len(slots)
+        names_packed, name_off, _ = self._pack_names(names)
+        i64 = lambda a: np.ascontiguousarray(a, np.int64)
+
+        if fastq:
+            assert qual_table is not None
+            q_breaks = np.ascontiguousarray(qual_table[0], np.float32)
+            q_vals = np.ascontiguousarray(qual_table[1], np.int32)
+            qK = q_breaks.shape[1]
+        else:
+            q_breaks = np.zeros((5, 1), np.float32)
+            q_vals = np.zeros((5, 1), np.int32)
+            qK = 1
+
+        name_lens = np.diff(name_off)
+        ubf = np.zeros(k + 1, np.int64)
+        ubf[1:] = np.cumsum(name_lens + total * (2 if fastq else 1) + 16)
+        ube = np.zeros(k + 1, np.int64)
+        if write_errors:
+            # per-read upper bound: events' (name + 52 + 2*len)
+            ev_len_sum = np.zeros(k, np.int64)
+            n_ev_sum = np.zeros(k, np.int64)
+            lens_all = ((seg_ev_flat >> np.uint32(17)) & np.uint32(0x1FFF)).astype(np.int64)
+            csum = np.zeros(len(lens_all) + 1, np.int64)
+            np.cumsum(lens_all, out=csum[1:])
+            for r in range(k):
+                for s in range(S):
+                    rs = r * S + s
+                    o, ne = int(seg_ev_off[rs]), int(seg_n_ev[rs])
+                    ev_len_sum[r] += csum[o + ne] - csum[o]
+                    n_ev_sum[r] += ne
+            ube[1:] = np.cumsum(n_ev_sum * (name_lens + 52) + 2 * ev_len_sum)
+        if self._fastx_buf.size < ubf[k]:
+            self._fastx_buf = np.empty(int(ubf[k] * 1.3) + 64, np.uint8)
+        if self._err_buf.size < ube[k] + 64:
+            self._err_buf = np.empty(int(ube[k] * 1.3) + 64, np.uint8)
+        if n_threads <= 0:
+            n_threads = min(4, os.cpu_count() or 1)
+
+        fw = ctypes.c_int64(0)
+        ew = ctypes.c_int64(0)
+        rc = self.lib.emit_chimeric_recon(
+            ctypes.c_int64(seed), ctypes.c_int64(stream),
+            ctypes.c_int64(rng_mod.SITE_IUPAC), ctypes.c_int64(rng_mod.SITE_INS_BASE),
+            ctypes.c_int64(rng_mod.SITE_HEAD_TAIL), ctypes.c_int64(rng_mod.SITE_QUAL),
+            ctypes.c_int64(rng_mod.PART_SEGMENT_BASE), ctypes.c_int64(rng_mod.PART_GAP_BASE),
+            ctypes.c_int64(ht_cap),
+            ctypes.c_int64(k), ctypes.c_int64(S),
+            _ptr(i64(slots), ctypes.c_int64),
+            names_packed.ctypes.data_as(ctypes.c_char_p),
+            _ptr(name_off, ctypes.c_int64),
+            _ptr(i64(total), ctypes.c_int64),
+            _ptr(i64(head), ctypes.c_int64),
+            _ptr(i64(tail), ctypes.c_int64),
+            _ptr(i64(n_seg), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(rev, np.uint8), ctypes.c_uint8),
+            _ptr(i64(seg_part_off), ctypes.c_int64),
+            _ptr(i64(seg_lnew), ctypes.c_int64),
+            _ptr(i64(seg_mid), ctypes.c_int64),
+            _ptr(i64(seg_goff), ctypes.c_int64),
+            _ptr(i64(seg_spos), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(seg_ev_flat, np.uint32), ctypes.c_uint32),
+            _ptr(i64(seg_ev_off), ctypes.c_int64),
+            _ptr(i64(seg_n_ev), ctypes.c_int64),
+            _ptr(i64(gap_part_off), ctypes.c_int64),
+            _ptr(i64(gap_lnew), ctypes.c_int64),
+            _ptr(i64(gap_mid), ctypes.c_int64),
+            _ptr(i64(gap_goff), ctypes.c_int64),
+            _ptr(i64(gap_spos), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(gap_ev_flat, np.uint32), ctypes.c_uint32),
+            _ptr(i64(gap_ev_off), ctypes.c_int64),
+            _ptr(i64(gap_n_steps), ctypes.c_int64),
+            _ptr(genome_flat, ctypes.c_uint8),
+            _ptr(ubf, ctypes.c_int64),
+            _ptr(ube, ctypes.c_int64),
+            _ptr(self._fastx_buf, ctypes.c_char),
+            ctypes.byref(fw),
+            _ptr(self._err_buf, ctypes.c_char),
+            ctypes.byref(ew),
+            ctypes.c_int32(1 if fastq else 0),
+            ctypes.c_int32(1 if write_errors else 0),
+            _ptr(q_breaks, ctypes.c_float),
+            _ptr(q_vals, ctypes.c_int32),
+            ctypes.c_int64(qK),
+            ctypes.c_int32(n_threads),
+        )
+        if rc != 0:
+            raise RuntimeError(f"emit_chimeric_recon failed rc={rc}")
+        return (
+            memoryview(self._fastx_buf)[: fw.value],
+            memoryview(self._err_buf)[: ew.value],
+        )
+
     def _pack_names(self, names):
         k = len(names)
         packed_off = np.zeros(k + 1, np.int64)
@@ -636,3 +771,102 @@ class NativeEmitter:
         packed_off[k] = pos
         packed = np.frombuffer(b"".join(chunks), np.uint8) if chunks else np.zeros(1, np.uint8)
         return packed, packed_off, pos
+
+    def emit_chimeric(
+        self,
+        reads: np.ndarray,  # [B, L] uint8
+        quals,  # [B, L] uint8 or None
+        lanes: np.ndarray,  # [k] int64, emission order
+        names: list,  # k strings
+        total_len: np.ndarray,  # [k]
+        rev: np.ndarray,  # [k] bool
+        n_seg: np.ndarray,  # [k]
+        seg_off: np.ndarray,  # [k, S] pre-reverse read-coord segment starts
+        ev_row: np.ndarray,  # [k, S] row into the event arrays (seg*B + lane)
+        n_events_rs: np.ndarray,  # [k, S]
+        ev_pos2x: np.ndarray,  # [B*S, E] int32
+        ev_type: np.ndarray,
+        ev_len: np.ndarray,
+        g_off: np.ndarray,  # [k, S]
+        g_len: np.ndarray,
+        g_circ: np.ndarray,  # [k, S] uint8
+        start_pos: np.ndarray,  # [k, S]
+        genome_flat: np.ndarray,
+        fastq: bool,
+        write_errors: bool,
+    ):
+        k = len(lanes)
+        S = seg_off.shape[1] if k else 1
+        names_packed, packed_off, name_bytes = self._pack_names(names)
+
+        need_fastx = int(total_len.sum()) * (2 if fastq else 1) + name_bytes * 2 + 16 * k + 64
+        if self._fastx_buf.size < need_fastx:
+            self._fastx_buf = np.empty(int(need_fastx * 1.3), np.uint8)
+        max_total = int(total_len.max()) if k else 1
+        if self._mid_buf.size < max_total:
+            self._mid_buf = np.empty(max_total * 2, np.uint8)
+        if write_errors:
+            rows = np.ascontiguousarray(ev_row, np.int64).reshape(-1)
+            tot_ev_len = int(ev_len[rows, :].sum()) if k else 0
+            max_name = max((len(nm) for nm in names), default=0)
+            need_err = int(n_events_rs.sum()) * (max_name + 48) + 2 * tot_ev_len + 64
+        else:
+            need_err = 64
+        if self._err_buf.size < need_err:
+            self._err_buf = np.empty(int(need_err * 1.3), np.uint8)
+
+        fw = ctypes.c_int64(0)
+        ew = ctypes.c_int64(0)
+        _, L = reads.shape
+        e_stride = ev_pos2x.shape[1]
+        args = [
+            _ptr(reads, ctypes.c_uint8),
+            ctypes.c_int64(L),
+            _ptr(quals if quals is not None else reads, ctypes.c_uint8),
+            ctypes.c_int64(k),
+            _ptr(np.ascontiguousarray(lanes, np.int64), ctypes.c_int64),
+            names_packed.ctypes.data_as(ctypes.c_char_p),
+            _ptr(packed_off, ctypes.c_int64),
+            _ptr(np.ascontiguousarray(total_len, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(rev, np.uint8), ctypes.c_uint8),
+            ctypes.c_int64(S),
+            _ptr(np.ascontiguousarray(n_seg, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(seg_off, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(ev_row, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(n_events_rs, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(ev_pos2x, np.int32), ctypes.c_int32),
+            _ptr(np.ascontiguousarray(ev_type, np.int32), ctypes.c_int32),
+            _ptr(np.ascontiguousarray(ev_len, np.int32), ctypes.c_int32),
+            ctypes.c_int64(e_stride),
+            _ptr(genome_flat, ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(g_off, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(g_len, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(g_circ, np.uint8), ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(start_pos, np.int64), ctypes.c_int64),
+            _ptr(self._fastx_buf, ctypes.c_char),
+            ctypes.c_int64(self._fastx_buf.size),
+            ctypes.byref(fw),
+            _ptr(self._err_buf, ctypes.c_char),
+            ctypes.c_int64(self._err_buf.size),
+            ctypes.byref(ew),
+            ctypes.c_int32(1 if fastq else 0),
+            ctypes.c_int32(1 if write_errors else 0),
+            _ptr(self._mid_buf, ctypes.c_char),
+            ctypes.c_int64(self._mid_buf.size),
+        ]
+        rc = self.lib.emit_chimeric_batch(*args)
+        if rc != 0:
+            if rc == 1:
+                self._fastx_buf = np.empty(self._fastx_buf.size * 2, np.uint8)
+            else:
+                self._err_buf = np.empty(self._err_buf.size * 2, np.uint8)
+                self._mid_buf = np.empty(self._mid_buf.size * 2, np.uint8)
+            return self.emit_chimeric(
+                reads, quals, lanes, names, total_len, rev, n_seg, seg_off,
+                ev_row, n_events_rs, ev_pos2x, ev_type, ev_len, g_off, g_len,
+                g_circ, start_pos, genome_flat, fastq, write_errors,
+            )
+        return (
+            self._fastx_buf[: fw.value].tobytes(),
+            self._err_buf[: ew.value].tobytes(),
+        )

@@ -62,6 +62,12 @@ STREAM_ALIGNED = 0
 STREAM_UNALIGNED = 1
 STREAM_GAP = 2
 
+# Chimeric reads consume several independent draw streams per slot (one per
+# segment and one per gap); parts get pseudo-slot keys offset into a
+# reserved range so their site draws never collide with the read-level ones.
+PART_SEGMENT_BASE = 0x50000
+PART_GAP_BASE = 0x60000
+
 MASK32 = 0xFFFFFFFF
 _ROT0 = (13, 15, 26, 6)
 _ROT1 = (17, 29, 16, 24)
@@ -113,6 +119,12 @@ def base_key(seed: int, stream: int = STREAM_ALIGNED, device="cuda") -> torch.Te
 def slot_keys(base: torch.Tensor, slot_ids: torch.Tensor) -> torch.Tensor:
     """[B] int64 slot ids -> [B, 2] per-slot keys."""
     return fold_in(base.expand(slot_ids.shape[0], 2), slot_ids)
+
+
+def part_slot_keys(slot_keys_arr: torch.Tensor, part_base: int, part_idx) -> torch.Tensor:
+    """Per-(slot, part) keys for chimeric segments/gaps; part_idx is an int
+    or a per-lane int64 tensor."""
+    return fold_in(slot_keys_arr, part_base + part_idx)
 
 
 def site_keys(slot_keys_arr: torch.Tensor, site: int) -> torch.Tensor:

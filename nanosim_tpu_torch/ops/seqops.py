@@ -71,3 +71,12 @@ def reverse_complement(seq: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor
     src = (lengths.long()[:, None] - 1 - j).clamp(0, L - 1)
     out = complement(torch.gather(seq, 1, src))
     return torch.where(j < lengths[:, None], out, torch.zeros_like(out))
+
+
+def reverse_quals(quals: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Per-lane reversal (for base_quals.reverse() on reversed reads)."""
+    L = quals.shape[1]
+    j = torch.arange(L, device=quals.device)[None, :]
+    src = (lengths.long()[:, None] - 1 - j).clamp(0, L - 1)
+    out = torch.gather(quals, 1, src)
+    return torch.where(j < lengths[:, None], out, torch.zeros_like(out))

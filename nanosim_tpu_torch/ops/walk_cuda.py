@@ -63,6 +63,27 @@ def _word(pos2x, length, etype) -> torch.Tensor:
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
 
 
+def aligned_step_arith(pos, middle_ref, l_new, prev_match, etype, elen, mstep):
+    """The state arithmetic of one aligned step, given its three draws (error
+    type, error length, next match length): the event's pos2x and the next
+    (pos, middle_ref, l_new, state, prev_match).  A zero match after a zero
+    match is forced to 1; del/mis overshoot extends the reference span."""
+    zero = torch.zeros_like(pos)
+    is_ins = etype == 1
+    is_del = etype == 2
+    e_pos2x = torch.where(is_ins, 2 * pos - 1, 2 * pos)
+    pos_after = pos + torch.where(is_ins, zero, elen)
+    over1 = (pos_after - middle_ref).clamp_min(0)
+    l_new_n = l_new + torch.where(is_ins, elen, torch.where(is_del, -elen, zero)) + over1
+    middle_ref_n = torch.maximum(middle_ref, torch.where(is_ins, middle_ref, pos_after))
+    mstep = torch.where((prev_match == 0) & (mstep == 0), torch.ones_like(mstep), mstep)
+    over2 = (pos_after + mstep - middle_ref_n).clamp_min(0)
+    l_new_n = l_new_n + over2
+    middle_ref_n = torch.maximum(middle_ref_n, pos_after + mstep)
+    new_state = etype + 1 + torch.where(mstep == 0, 3, 0).to(torch.int32)
+    return e_pos2x, pos_after + mstep, middle_ref_n, l_new_n, new_state, mstep
+
+
 def aligned_steps_plain(walk_keys, m_ref, first_match, match_markov, mixtures, trans,
                         max_events: int):
     """Plain PyTorch aligned walk (steps 1..E): the kernel's reference."""
@@ -75,7 +96,6 @@ def aligned_steps_plain(walk_keys, m_ref, first_match, match_markov, mixtures, t
     prev_match = pos.clone()
     n_events = torch.zeros(B, dtype=torch.int32, device=dev)
     words = torch.zeros((B, E), dtype=torch.int32, device=dev)
-    zero = torch.zeros_like(pos)
     for t0 in range(1, E + 1, UNROLL):
         if not bool((pos < middle_ref).any()):
             break
@@ -86,23 +106,13 @@ def aligned_steps_plain(walk_keys, m_ref, first_match, match_markov, mixtures, t
             u_err, u_len, u_match = U[k, :, 0], U[k, :, 1], U[k, :, 2]
             etype = trans.sample(state, u_err)
             elen = mixtures.sample(etype, u_len)
-            is_ins = etype == 1
-            is_del = etype == 2
-            e_pos2x = torch.where(is_ins, 2 * pos - 1, 2 * pos)
-            pos_after = pos + torch.where(is_ins, zero, elen)
-            over1 = (pos_after - middle_ref).clamp_min(0)
-            l_new_n = l_new + torch.where(is_ins, elen, torch.where(is_del, -elen, zero)) + over1
-            middle_ref_n = torch.maximum(middle_ref, torch.where(is_ins, middle_ref, pos_after))
             bins = match_markov.select_bin(prev_match)
             mstep = match_markov.invert(bins, u_match).to(torch.int32)
-            mstep = torch.where((prev_match == 0) & (mstep == 0), torch.ones_like(mstep), mstep)
-            over2 = (pos_after + mstep - middle_ref_n).clamp_min(0)
-            l_new_n = l_new_n + over2
-            middle_ref_n = torch.maximum(middle_ref_n, pos_after + mstep)
-            new_state = etype + 1 + torch.where(mstep == 0, 3, 0).to(torch.int32)
+            e_pos2x, pos_n, middle_ref_n, l_new_n, new_state, mstep = aligned_step_arith(
+                pos, middle_ref, l_new, prev_match, etype, elen, mstep)
             t = int(ts[k])
             words[:, t - 1] = torch.where(active, _word(e_pos2x, elen, etype), 0)
-            pos = torch.where(active, pos_after + mstep, pos)
+            pos = torch.where(active, pos_n, pos)
             middle_ref = torch.where(active, middle_ref_n, middle_ref)
             l_new = torch.where(active, l_new_n, l_new)
             state = torch.where(active, new_state, state)

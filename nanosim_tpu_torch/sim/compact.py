@@ -81,6 +81,16 @@ def event_words(ev_pos2x, ev_type, ev_len) -> torch.Tensor:
     return (ev_pos2x.long() | (ev_len.long() << 17) | (ev_type.long() << 30)) & MASK32
 
 
+def event_checksum(ev_pos2x, ev_type, ev_len, n_events) -> torch.Tensor:
+    """Order-sensitive 32-bit checksum over each lane's first n_events packed
+    event words (uint32 in int64; the host walk replay recomputes it)."""
+    w = event_words(ev_pos2x, ev_type, ev_len)
+    e_i = torch.arange(w.shape[1], dtype=torch.int64, device=w.device)[None, :]
+    terms = ((w + 1) * (2 * e_i + 1)) & MASK32
+    mask = e_i < n_events.long()[:, None]
+    return torch.where(mask, terms, 0).sum(dim=1) & MASK32
+
+
 def compact_pack(
     valid,  # [B] bool
     total,  # [B] int32
@@ -160,13 +170,7 @@ def compact_pack(
         extra_cols.append(pre_len)
 
     if with_checksum:
-        # order-sensitive 32-bit checksum over the packed event words (the
-        # host walk replay recomputes it)
-        w = event_words(ev_pos2x, ev_type, ev_len)
-        e_i = torch.arange(w.shape[1], dtype=torch.int64, device=dev)[None, :]
-        terms = ((w + 1) * (2 * e_i + 1)) & MASK32
-        mask = e_i < n_events.long()[:, None]
-        cksum = torch.where(mask, terms, 0).sum(dim=1) & MASK32
+        cksum = event_checksum(ev_pos2x, ev_type, ev_len, n_events)
     else:
         cksum = torch.zeros(B, dtype=torch.int64, device=dev)
     cols = [valid, total, head, tail, middle_ref, l_new, chrom, local_pos,

@@ -39,14 +39,19 @@ class RunStats:
         # lanes whose host walk replay failed the device checksum, so their
         # events were fetched from the device instead
         self.checksum_fallback_lanes = 0
+        # chimeric batches whose active (slot, segment) pairs exceeded the
+        # packed walk-lane capacity and were re-run unpacked
+        self.packed_spills = 0
 
     def summary(self) -> str:
         return (f"capacity events: overflow_rescue_lanes={self.overflow_rescue_lanes} "
-                f"checksum_fallback_lanes={self.checksum_fallback_lanes}")
+                f"checksum_fallback_lanes={self.checksum_fallback_lanes} "
+                f"packed_spills={self.packed_spills}")
 
     def report(self, log=None) -> None:
         """Emit the counters when any fired (log: callable or None=stderr)."""
-        if not (self.overflow_rescue_lanes or self.checksum_fallback_lanes):
+        if not (self.overflow_rescue_lanes or self.checksum_fallback_lanes
+                or self.packed_spills):
             return
         if log is None:
             print("[nanosim-tpu-torch] " + self.summary(), file=sys.stderr)
@@ -159,6 +164,35 @@ def event_read_positions(ev_pos2x, ev_type, ev_len):
     ref_start = np.where(is_ins, key, ev_pos2x // 2)
     rpos = ref_start - (np.cumsum(dlen) - dlen) + (np.cumsum(ilen) - ilen)
     return key, rpos, ev_len
+
+
+def _prehp_log_rows(name, keys_v, types_v, lens_v, rpos_v, mid: str, g, chrom: int, spos: int):
+    """Ground-truth log rows of one segment in ascending event order:
+    zero-length (suppressed or overwritten) events are skipped, seq bases are
+    cut from the pass-1 middle `mid`, ref bases from the genome (wrapping on a
+    circular chromosome)."""
+    goff = int(g.offsets[chrom])
+    glen = int(g.lengths[chrom])
+    circ = bool(g.circular[chrom])
+    rows = []
+    for k, t, ln, rp in zip(keys_v.tolist(), types_v.tolist(), lens_v.tolist(), rpos_v.tolist()):
+        if ln == 0:
+            continue
+        if t == 1:
+            ref = "-" * ln
+            seq = mid[rp : rp + ln]
+        else:
+            st = spos + k
+            if circ and st % glen + ln > glen:
+                idxs = (np.arange(st, st + ln) % glen) + goff
+                ref = g.flat[idxs].tobytes().decode()
+            else:
+                if circ:
+                    st %= glen
+                ref = g.flat[goff + st : goff + st + ln].tobytes().decode()
+            seq = mid[rp : rp + ln] if t == 0 else "-" * ln
+        rows.append(f"{name}\t{k}\t{_ETYPE_NAMES[t]}\t{ln}\t{ref}\t{seq}\n")
+    return rows
 
 
 class GenomeBatchWriter:
@@ -295,30 +329,9 @@ class GenomeBatchWriter:
                 (w >> np.uint32(30)).astype(np.int64),
                 ((w >> np.uint32(17)) & np.uint32(0x1FFF)).astype(np.int64),
             )
-            types_v = (w >> np.uint32(30)).tolist()
             mid = decode_prehp_ascii(cb, b).tobytes().decode()
-            goff = int(g.offsets[cb.chrom[b]])
-            glen = int(g.lengths[cb.chrom[b]])
-            circ = bool(g.circular[cb.chrom[b]])
-            spos = int(cb.pos[b])
-            lane_rows = []
-            for k, t, ln, rp in zip(keys_v.tolist(), types_v, lens_v.tolist(), rpos_v.tolist()):
-                if ln == 0:
-                    continue
-                if t == 1:
-                    ref = "-" * ln
-                    seq = mid[rp : rp + ln]
-                else:
-                    st = spos + k
-                    if circ and st % glen + ln > glen:
-                        idxs = (np.arange(st, st + ln) % glen) + goff
-                        ref = g.flat[idxs].tobytes().decode()
-                    else:
-                        if circ:
-                            st %= glen
-                        ref = g.flat[goff + st : goff + st + ln].tobytes().decode()
-                    seq = mid[rp : rp + ln] if t == 0 else "-" * ln
-                lane_rows.append(f"{name}\t{k}\t{_ETYPE_NAMES[t]}\t{ln}\t{ref}\t{seq}\n")
+            lane_rows = _prehp_log_rows(name, keys_v, (w >> np.uint32(30)), lens_v, rpos_v, mid,
+                                        g, int(cb.chrom[b]), int(cb.pos[b]))
             rows.extend(reversed(lane_rows))
         return "".join(rows).encode()
 
@@ -644,3 +657,281 @@ class AsyncBatchWriter:
             self.inner.io_pool = None
 
 
+class ChimericBatchWriter:
+    """Accept/number/emit a chimeric batch (genome mode).
+
+    Names: ';'-joined per-segment `<chrom>_<pos>` components, `_chimeric`
+    marker when > 1 segment, middle lengths joined with ';'
+    (simulator.py:1390-1402).
+
+    The metagenome parts of this writer (species-prefixed components,
+    `gap_<len>` components, the base-level species-quota feedback) come with
+    the metagenome mode and have no hook here yet.
+    """
+
+    def __init__(self, fastx: FastxWriter, error_log=None):
+        self.fastx = fastx
+        self.error_log = error_log
+        from ..io.native import NativeEmitter
+
+        self._emitter = NativeEmitter()
+        if not self._emitter.available:
+            raise RuntimeError("the chimeric writer needs native/fastwriter.cpp built with g++")
+
+    @staticmethod
+    def _name(g_names, idx: int, ns: int, chrom, pos, rev, head, mids, tail) -> str:
+        comps = [f"{g_names[chrom[s]]}_{pos[s]}" for s in range(ns)]
+        name = ";".join(comps) + f"_aligned_{idx}"
+        if ns > 1:
+            name += "_chimeric"
+        name += "_R" if rev else "_F"
+        return name + f"_{head}_{';'.join(str(mids[s]) for s in range(ns))}_{tail}"
+
+    def _decode_meta(self, sim, h):
+        from .chimeric_mode import decode_chimeric_meta
+
+        S = sim.s_max
+        d = decode_chimeric_meta(h.meta_dev.cpu().numpy(), S)
+        if d["spill"].any():
+            # packed lane capacity exceeded (vanishingly rare): identical
+            # per-slot results via the unpacked program
+            RUN_STATS.packed_spills += 1
+            d = decode_chimeric_meta(sim.chimeric_meta_unpacked(h.slots, h.seed), S)
+        return d
+
+    def prepare_recon_chimeric(self, sim, h, accepted_so_far: int, quota: int):
+        """Decode a meta-only chimeric batch and select its accepted lanes —
+        the cheap sequential head of a batch.  The expensive replay+emit
+        (`_write_recon_chimeric` with `prepared=`) can then run AFTER the
+        next batch has been assigned and dispatched, overlapping host
+        emission with device compute."""
+        d = self._decode_meta(sim, h)
+        lanes = np.nonzero(d["valid"])[0][: quota - accepted_so_far]
+        return {"d": d, "lanes": lanes, "start": accepted_so_far}
+
+    def _write_recon_chimeric(self, sim, h, accepted_so_far: int, quota: int,
+                              lanes=None, start=None, prepared=None) -> int:
+        """Host-reconstruct + emit a meta-only chimeric batch (genome mode):
+        part-keyed C++ walk replays (checksum-verified) + C++ splicing of
+        head | segments | gaps | tail."""
+        from ..ops import rng as rng_mod
+
+        S = sim.s_max
+        G = max(S - 1, 1)
+        if prepared is not None:
+            d = prepared["d"]
+            lanes = prepared["lanes"]
+            start = prepared["start"]
+        else:
+            d = self._decode_meta(sim, h)
+        if lanes is None:
+            lanes = np.nonzero(d["valid"])[0][: quota - accepted_so_far]
+            start = accepted_so_far
+        if len(lanes) == 0:
+            return 0
+        k = len(lanes)
+        slots = np.asarray(h.slots)
+        g = sim.genome_host
+
+        names = [
+            self._name(g.names, start + rank, int(d["n_seg"][b]), d["chrom"][b], d["pos"][b],
+                       d["rev"][b], d["head"][b], d["seg_mref"][b], d["tail"][b])
+            for rank, b in enumerate(lanes)
+        ]
+
+        n_seg_l = d["n_seg"][lanes]
+        seg_do = np.arange(S)[None, :] < n_seg_l[:, None]
+        nev_flat = np.where(seg_do, d["n_events"][lanes], 0).reshape(-1)
+        off_flat = np.concatenate([[0], np.cumsum(nev_flat)])[:-1]
+        ev_out = np.zeros(max(int(nev_flat.sum()), 1), np.uint32)
+        ok = sim._seg_replayer.replay(
+            np.repeat(slots[lanes], S), seg_do.reshape(-1).astype(np.uint8),
+            d["seg_mref_init"][lanes].reshape(-1), nev_flat,
+            d["seg_cksum"][lanes].reshape(-1).astype(np.uint32),
+            ev_out, off_flat,
+            part_ids=np.tile(np.arange(S, dtype=np.int64) + rng_mod.PART_SEGMENT_BASE, k),
+        )
+        if not bool((ok | ~seg_do.reshape(-1)).all()):
+            raise RuntimeError(
+                "chimeric segment walk replay failed checksum verification; "
+                "set NANOSIM_TPU_RECON=0 to fall back to device materialization"
+            )
+
+        gap_do = np.arange(G)[None, :] < (n_seg_l - 1)[:, None]
+        gsteps = np.where(gap_do, d["gap_n_steps"][lanes], 0).reshape(-1)
+        goff_flat = np.concatenate([[0], np.cumsum(gsteps)])[:-1]
+        gev_out = np.zeros(max(int(gsteps.sum()), 1), np.uint32)
+        gok = sim._gap_replayer.replay(
+            np.repeat(slots[lanes], G), gap_do.reshape(-1).astype(np.uint8),
+            d["gap_mref_init"][lanes].reshape(-1), gsteps,
+            d["gap_cksum"][lanes].reshape(-1).astype(np.uint32),
+            gev_out, goff_flat,
+            part_ids=np.tile(np.arange(G, dtype=np.int64) + rng_mod.PART_GAP_BASE, k),
+        )
+        if not bool((gok | ~gap_do.reshape(-1)).all()):
+            raise RuntimeError(
+                "chimeric gap walk replay failed checksum verification; "
+                "set NANOSIM_TPU_RECON=0 to fall back to device materialization"
+            )
+
+        with_events = self.error_log is not None
+        qt = None
+        if sim.fastq:
+            qd = sim.tables.qual
+            qt = (qd.breaks.cpu().numpy(), qd.vals.cpu().numpy())
+
+        fastx_mv, err_mv = self._emitter.emit_chimeric_recon(
+            seed=h.seed, stream=rng_mod.STREAM_ALIGNED, ht_cap=sim.ht_cap, S=S,
+            slots=slots[lanes], names=names,
+            total=d["total"][lanes], head=d["head"][lanes], tail=d["tail"][lanes],
+            n_seg=n_seg_l, rev=d["rev"][lanes].astype(np.uint8),
+            seg_part_off=d["seg_off"][lanes].reshape(-1),
+            seg_lnew=d["seg_lnew"][lanes].reshape(-1),
+            seg_mid=d["seg_mref"][lanes].reshape(-1),
+            seg_goff=g.offsets[d["chrom"][lanes].reshape(-1)],
+            seg_spos=d["pos"][lanes].reshape(-1),
+            seg_ev_flat=ev_out, seg_ev_off=off_flat, seg_n_ev=nev_flat,
+            gap_part_off=(d["seg_off"][lanes][:, :G]
+                          + d["seg_lnew"][lanes][:, :G]).reshape(-1),
+            gap_lnew=d["gap_len"][lanes].reshape(-1),
+            gap_mid=d["gap_middle"][lanes].reshape(-1),
+            gap_goff=g.offsets[np.clip(d["gap_chrom"][lanes].reshape(-1), 0,
+                                       len(g.offsets) - 1)],
+            gap_spos=d["gap_pos"][lanes].reshape(-1),
+            gap_ev_flat=gev_out, gap_ev_off=goff_flat, gap_n_steps=gsteps,
+            genome_flat=g.flat, fastq=sim.fastq, write_errors=with_events,
+            qual_table=qt,
+        )
+        self.fastx.flush()
+        self.fastx.f.write(fastx_mv)
+        if with_events:
+            self.error_log.write_bytes(err_mv)
+        return k
+
+    def write_batch(self, sim, out, accepted_so_far: int, quota: int,
+                    lanes=None, start=None, prepared=None) -> int:
+        from .chimeric_mode import ChimericReconHandle
+
+        if isinstance(out, ChimericReconHandle):
+            return self._write_recon_chimeric(sim, out, accepted_so_far, quota,
+                                              lanes, start, prepared=prepared)
+        # a device-materialized batch: only what the emitters read crosses
+        # the link — the accepted lanes' reads up to the longest total, and
+        # the event rows of their active segments up to the longest event list
+        import torch
+
+        if lanes is None:
+            lanes = np.nonzero(out.valid.cpu().numpy())[0][: quota - accepted_so_far]
+        if start is not None:
+            accepted_so_far = start
+        if len(lanes) == 0:
+            return 0
+        dev = out.valid.device
+        lane_t = torch.as_tensor(np.asarray(lanes, np.int64), device=dev)
+
+        def host(x):
+            return x[lane_t].cpu().numpy()
+
+        total = host(out.total_len)
+        head = host(out.head)
+        tail = host(out.tail)
+        n_seg = host(out.n_seg)
+        seg_mref = host(out.seg_middle_ref)
+        seg_off = host(out.seg_offset)
+        chrom = host(out.chrom)
+        pos = host(out.local_pos)
+        rev = host(out.is_reversed)
+        n_events = host(out.n_events)
+        max_total = max(int(total.max()), 1)
+        reads = out.read[lane_t, :max_total].cpu().numpy()
+        quals = out.quals[lane_t, :max_total].cpu().numpy() if sim.fastq else None
+        hp_mode = getattr(sim, "kmer_bias", None) is not None
+
+        g = sim.genome_host
+        B = out.valid.shape[0]
+        k, S = seg_mref.shape
+        with_events = self.error_log is not None
+        names = [
+            self._name(g.names, accepted_so_far + r, int(n_seg[r]), chrom[r], pos[r], rev[r],
+                       head[r], seg_mref[r], tail[r])
+            for r in range(k)
+        ]
+
+        # compact event rows: one per (accepted lane, active segment)
+        seg_do = np.arange(S)[None, :] < n_seg[:, None]
+        ev_rows = np.zeros((k, S), np.int64)
+        ev_rows[seg_do] = np.arange(int(seg_do.sum()))
+        if with_events:
+            rows_dev = (np.arange(S, dtype=np.int64)[None, :] * B
+                        + np.asarray(lanes, np.int64)[:, None])[seg_do]
+            rows_t = torch.as_tensor(rows_dev, device=dev)
+            max_ne = max(int(n_events[seg_do].max()) if seg_do.any() else 0, 1)
+            ev_pos2x = out.ev_pos2x[rows_t, :max_ne].cpu().numpy()
+            ev_type = out.ev_type[rows_t, :max_ne].cpu().numpy()
+            ev_len = out.ev_len[rows_t, :max_ne].cpu().numpy()
+        else:
+            ev_pos2x = ev_type = ev_len = np.zeros((1, 1), np.int32)
+
+        if not hp_mode:
+            # C++ batch formatter (records + per-segment error log)
+            fastx_bytes, err_bytes = self._emitter.emit_chimeric(
+                reads=reads,
+                quals=quals,
+                lanes=np.arange(k, dtype=np.int64),
+                names=names,
+                total_len=total,
+                rev=rev,
+                n_seg=n_seg,
+                seg_off=seg_off,
+                ev_row=ev_rows,
+                n_events_rs=(n_events if with_events else np.zeros((k, S), np.int64)),
+                ev_pos2x=ev_pos2x,
+                ev_type=ev_type,
+                ev_len=ev_len,
+                g_off=g.offsets[chrom],
+                g_len=g.lengths[chrom],
+                g_circ=np.ascontiguousarray(g.circular[chrom], np.uint8),
+                start_pos=pos,
+                genome_flat=g.flat,
+                fastq=sim.fastq,
+                write_errors=with_events,
+            )
+            self.fastx.flush()
+            self.fastx.f.write(fastx_bytes)
+            if with_events:
+                self.error_log.write_bytes(err_bytes)
+            return k
+
+        # -hp rewrites homopolymer runs AFTER the logged pass-1 mutation, so
+        # the log is cut from the pre-resize segment buffers, event by event
+        for r in range(k):
+            self.fastx.write(names[r], reads[r, : total[r]],
+                             quals[r, : total[r]] if sim.fastq else None)
+        if with_events:
+            prehp = out.seg_read_prehp[rows_t].cpu().numpy()
+            self.error_log.write_bytes(self._hp_log_bytes(
+                g, names, n_seg, n_events, ev_rows, ev_pos2x, ev_type, ev_len, prehp, chrom, pos))
+        return k
+
+    @staticmethod
+    def _hp_log_bytes(g, names, n_seg, n_events, ev_rows, ev_pos2x, ev_type, ev_len, prehp,
+                      chrom, pos) -> bytes:
+        """The -hp ground-truth log of a device-materialized batch: per read
+        and active segment, the rows of `_prehp_log_rows` from the segment's
+        events and its pass-1 bytes (`ev_rows[r, s]` is the segment's row in
+        the compact event and `prehp` arrays)."""
+        rows = []
+        for r, name in enumerate(names):
+            for s in range(int(n_seg[r])):
+                ne = int(n_events[r, s])
+                if ne == 0:
+                    continue
+                row = ev_rows[r, s]
+                ty = ev_type[row, :ne].astype(np.int64)
+                keys_v, rpos_v, lens_v = event_read_positions(
+                    ev_pos2x[row, :ne].astype(np.int64), ty, ev_len[row, :ne].astype(np.int64))
+                mid = prehp[row].tobytes().decode("latin-1")
+                seg_rows = _prehp_log_rows(name, keys_v, ty, lens_v, rpos_v, mid, g,
+                                           int(chrom[r, s]), int(pos[r, s]))
+                rows.extend(reversed(seg_rows))
+        return "".join(rows).encode("latin-1")

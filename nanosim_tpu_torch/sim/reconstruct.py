@@ -687,3 +687,78 @@ def reconstruct_hp_batch(cb, lanes, genome, seed: int, stream: int,
             qual_table=qual_table,
         ))
     return out
+
+
+def reconstruct_chimeric_lane(genome, seed, stream, slot, rec, ht_cap,
+                              qual_table=None):
+    """Full chimeric read (head | seg | gap | ... | tail) from replayed part
+    event streams; numpy spec of native emit_chimeric_recon.
+
+    rec: dict with head, tail, total, rev, n_seg and per-part lists:
+    segs = [(part_off, l_new, mid, g_off, spos, events)], gaps likewise
+    (events per-STEP).  Returns (read, quals_or_None, seg_mids list)."""
+    from ..ops import rng
+
+    total = rec["total"]
+    head, tail = rec["head"], rec["tail"]
+    pre = np.zeros(total, np.uint8)
+    cls = np.full(total, 3, np.uint8)  # head/tail default
+    ks_ht = key_root(seed, stream, slot, rng.SITE_HEAD_TAIL)
+
+    for jj in range(head):
+        u = uniform_at(ks_ht, np.asarray([min(jj, ht_cap - 1)]))[0]
+        pre[jj] = _BASES[_CHOICE_CODE[min(int(np.float32(u) * np.float32(4.0)), 3)]]
+    for x in range(tail):
+        u = uniform_at(ks_ht, np.asarray([min(head + x, ht_cap - 1)]))[0]
+        pre[total - tail + x] = _BASES[_CHOICE_CODE[min(int(np.float32(u) * np.float32(4.0)), 3)]]
+
+    seg_mids = []
+    for s, (poff, lnew, mid, goff, spos, events) in enumerate(rec["segs"]):
+        # per-(slot, part) keys: the part id folds in between slot and site
+        base_k = _part_key(seed, stream, slot, rng.PART_SEGMENT_BASE + s)
+        keys = {
+            "iupac": fold_in(base_k, rng.SITE_IUPAC),
+            "ins": fold_in(base_k, rng.SITE_INS_BASE),
+        }
+        bytes_s, cls_s = reconstruct_segment(genome.flat, goff, spos, events, lnew, keys)
+        pre[poff : poff + lnew] = np.frombuffer(bytes_s.tobytes(), np.uint8)
+        cls[poff : poff + lnew] = cls_s
+        seg_mids.append(bytes_s)
+    for gi, (poff, lnew, mid, goff, spos, steps) in enumerate(rec["gaps"]):
+        base_k = _part_key(seed, stream, slot, rng.PART_GAP_BASE + gi)
+        keys = {
+            "iupac": fold_in(base_k, rng.SITE_IUPAC),
+            "ins": fold_in(base_k, rng.SITE_INS_BASE),
+        }
+        gr = reconstruct_unaligned_lane(genome.flat, goff, spos, steps, mid,
+                                        lnew, False, keys)
+        pre[poff : poff + lnew] = np.frombuffer(gr.tobytes(), np.uint8)
+        cls[poff : poff + lnew] = 4  # gaps: unmapped qual class, never logged
+
+    if rec["rev"]:
+        comp = np.arange(256, dtype=np.uint8)
+        for a, b in ((65, 84), (67, 71)):
+            comp[a], comp[b] = b, a
+        read = comp[pre[::-1]]
+    else:
+        read = pre
+    quals = None
+    if qual_table is not None:
+        breaks, vals = qual_table
+        kq = key_root(seed, stream, slot, rng.SITE_QUAL)
+        quals = np.empty(total, np.uint8)
+        for j in range(total):
+            jj = total - 1 - j if rec["rev"] else j
+            u = uniform_at(kq, np.asarray([jj]))[0]
+            c = int(cls[jj])
+            cnt = int(np.searchsorted(breaks[c], np.float32(u), side="right"))
+            quals[j] = vals[c, cnt - 1] + 33
+    return read, quals, seg_mids
+
+
+def _part_key(seed, stream, slot, part):
+    k = (np.uint32(np.uint64(seed) >> np.uint64(32)),
+         np.uint32(np.uint64(seed) & np.uint64(0xFFFFFFFF)))
+    k = fold_in(k, stream)
+    k = fold_in(k, slot)
+    return fold_in(k, part)

@@ -27,6 +27,7 @@ def simulate_genome(
     number: int = 20000,
     *,
     fastq: bool = False,
+    chimeric: bool = False,
     kmer_bias: Optional[int] = None,
     strandness: Optional[float] = None,
     dna_type: str = "linear",
@@ -40,15 +41,17 @@ def simulate_genome(
     """Genome-mode simulation (reference main genome branch,
     simulator.py:2226-2320): aligned then unaligned reads, linear or circular
     DNA (circular: one chromosome); kmer_bias switches the aligned pass to
-    homopolymer mode (`-hp -k`).  Returns counters for reporting.  Runs on
-    the card unless `device` says otherwise."""
+    homopolymer mode (`-hp -k`); chimeric draws a segment count per aligned
+    read and joins the segments with gap sequences (`--chimeric`; such a run
+    cannot be resumed).  Returns counters for reporting.  Runs on the card
+    unless `device` says otherwise."""
     _log("Read in reference")
     genome = PackedGenome.from_fasta(ref_g, dna_type=dna_type)
     if dna_type == "circular" and genome.n_chrom > 1:
         raise ValueError("Do not choose circular if there is more than one chromosome in the genome!")
 
     _log("Read profile")
-    prof = profile_mod.load_profile(model_prefix, mode="genome", fastq=fastq,
+    prof = profile_mod.load_profile(model_prefix, mode="genome", fastq=fastq, chimeric=chimeric,
                                     homopolymer=kmer_bias is not None, strandness=strandness)
     n_aligned, n_unaligned = profile_mod.split_aligned_unaligned(
         [number], prof.aligned_rate, False
@@ -59,14 +62,24 @@ def simulate_genome(
 
     _log("Start simulation of aligned reads")
     circular = dna_type == "circular"
-    sim = GenomeSimulator(genome, prof, fastq=fastq, circular_dna=circular, min_len=min_len,
-                          max_len=max_len, batch=batch, kmer_bias=kmer_bias, device=device)
+    if chimeric:
+        from .chimeric_mode import ChimericGenomeSimulator
+
+        sim = ChimericGenomeSimulator(genome, prof, fastq=fastq, circular_dna=circular,
+                                      min_len=min_len, max_len=max_len, batch=batch,
+                                      kmer_bias=kmer_bias, device=device)
+    else:
+        sim = GenomeSimulator(genome, prof, fastq=fastq, circular_dna=circular, min_len=min_len,
+                              max_len=max_len, batch=batch, kmer_bias=kmer_bias, device=device)
     state_path = out + "_aligned.resume.json"
     resuming = resume and os.path.exists(state_path)
     fw = output.FastxWriter(out + "_aligned_reads" + ext, fastq, append=resuming)
     el = output.ErrorLogWriter(out + "_aligned_error_profile", header=True, append=resuming)
-    writer = output.GenomeBatchWriter(fw, el)
-    sim.run(n_aligned, writer, seed=seed, resume_state=state_path if resume else None)
+    if chimeric:
+        sim.run(n_aligned, output.ChimericBatchWriter(fw, el), seed=seed)
+    else:
+        writer = output.GenomeBatchWriter(fw, el)
+        sim.run(n_aligned, writer, seed=seed, resume_state=state_path if resume else None)
     fw.close()
     el.close()
 
