@@ -4,8 +4,8 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. the card: `nvidia-smi` name and power limit, torch's device name and count;
-2. builds: csrc/walk.cu, csrc/walk_ablate.cu, csrc/gather.cu and
-   csrc/assemble.cu with nvcc (sm_90a, one nvcc per source; the ptxas reports
+2. builds: csrc/walk.cu, csrc/walk_ablate.cu, csrc/gather.cu,
+   csrc/assemble.cu and csrc/gather_window.cu with nvcc (sm_90a, one nvcc per source; the ptxas reports
    are printed, a reported register spill fails the run) and
    native/fastwriter.cpp with g++, all started together;
 3. kernels from the bench configuration's tables (mean read 8,000, sd
@@ -67,11 +67,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    K4 and K5 must have launched, with 0 checksum-fallback lanes, matching
    record counts, the wrap-aware ref_base check, a traced byte-identical
    rerun, and the seconds the host spends composing the error log;
-9. `-hp` on the host-reconstruction route: 20,000 reads on the 48 Mb genome
+9. `-hp` on the host-reconstruction route: 10,000 reads on the 48 Mb genome
    (reads/s, fallback and rescue lanes, ref_base), then 2,000 reads with
    NANOSIM_TPU_RECON=0 against the default route: the files must be equal;
 10. the chimeric path at full width (`--chimeric`, FASTQ, batch 512): the
-   host-reconstruction route on the 48 Mb genome, 10,000 reads, untraced and
+   host-reconstruction route on the 48 Mb genome, 6,000 reads, untraced and
    traced, counters zeroed just before and read just after; K1 and K2 must
    have launched, with 0 packed spills (a failed replay checksum ends the
    run), matching record counts, reads of more than one segment present,
@@ -80,16 +80,40 @@ Phases (any failure exits non-zero, and no result line is printed):
    chromosome (K1, K2, K4 must have launched); NANOSIM_TPU_RECON=0 at 2,000
    reads on the 48 Mb genome against the default route, files equal;
    `--chimeric -hp -k 6` at 1,000 reads on the circular chromosome with the
-   seconds of the Python log.
+   seconds of the Python log;
+12. the transcriptome at a small size, CUDA against CPU, byte-identical
+   files: cDNA with polyA, direct RNA, intron retention, `-hp -k 6`,
+   `--perfect`, and cDNA and intron retention with NANOSIM_TPU_RECON=0; then
+   genome `--perfect` linear, circular, NANOSIM_TPU_RECON=0 and `-hp -k 6`
+   circular;
+13. the transcriptome kernels' shapes (a synthetic transcriptome of 100,000
+   transcripts, mean 1,800 bp, the JAX package's transcriptome bench model,
+   batch 512): K1 and K2 on the cDNA path's first batches, K4 on the direct
+   RNA unaligned pass's first batch, each against its plain version and
+   timed; each batch's peak device memory; the intron-retention batch (2,000
+   structured transcripts on one 6 Mb chromosome) and its IR walk's device
+   kernels, traced;
+14. the transcriptome paths at full width, counters zeroed just before and
+   read just after: cDNA (10,000 reads, FASTQ, polyA; untraced and a traced
+   byte-identical rerun), direct RNA (10,000 reads; K4 on the raw-byte
+   unaligned pass), intron retention (10,000 reads), `-hp -k 6` (1,000
+   reads), each with 0 checksum-fallback lanes and ref_base checked on 200
+   records; NANOSIM_TPU_RECON=0 at 2,000 reads for cDNA and intron retention,
+   files equal to Route A's;
+15. the windowed byte gather (K8, bench/gather_variants.py): every instance
+   against its plain version at the experiment's shape (B=1,024, L=19,456,
+   4,608 packed bytes) and at a ragged one, then every variant timed beside
+   its bound, the plain version and one torch.gather, with the W4 coverage
+   check.
 
 The line before the last is the kernels' JSON record: every kernel at every
 shape a path gives it, with that path's launches (`path`: main, circular,
--hp, chimeric, chimeric circular, chimeric -hp, and `experiments` for the
-whole-step variants of K6 and K7); the line before it holds the other shapes
-and the other experiment variants.  The last line is
-{"ok": true, "device": {...}}.  `--quick` runs only the builds, the
-experiments, the chimeric kernel shapes and the small chimeric CUDA-vs-CPU
-runs (a short check while working on that slice).
+-hp, chimeric, chimeric circular, chimeric -hp, transcriptome, direct RNA,
+and `experiments` for the whole-step variants of K6 and K7 and the
+instances of K8); the line before it holds the other shapes and the other
+experiment variants.  The last line is {"ok": true, "device": {...}}.
+`--quick` runs only the builds and phases 12-15 (a short check while
+working on the newest slice).
 """
 
 import contextlib
@@ -115,13 +139,13 @@ N_CIRC = 10000
 N_RECON0 = 4000
 HP_K = 6  # `-hp -k 6`
 N_HP = 10000  # the -hp path (device-materialized route, circular chromosome)
-N_HP_RECON = 20000  # -hp on the host-reconstruction route (48 Mb genome)
+N_HP_RECON = 10000  # -hp on the host-reconstruction route (48 Mb genome)
 N_HP_RECON0 = 2000  # -hp, NANOSIM_TPU_RECON=0 against the default route
 # the chimeric path: the JAX package's bench.py chimeric configuration
 # (bench.py:125-171: segment mean 1.3, a quarter of the batch, s_max 8)
 CHI_BATCH = BATCH // 4
 CHI_SEGMENT_MEAN = 1.3
-N_CHI = 10000  # Route A (host reconstruction, packed walks), 48 Mb genome
+N_CHI = 6000  # Route A (host reconstruction, packed walks), 48 Mb genome
 N_CHI_CIRC = 2000  # Route B (device-materialized), the circular chromosome
 N_CHI_RECON0 = 2000  # NANOSIM_TPU_RECON=0 against Route A
 N_CHI_HP = 1000  # --chimeric -hp -k 6 on Route B (Python log per event)
@@ -174,8 +198,8 @@ def phase_card():
 
 def phase_build():
     from nanosim_tpu_torch.io import native
-    from nanosim_tpu_torch.ops import (assemble_cuda, cuda_build, gather_cuda, walk_ablate,
-                                       walk_cuda)
+    from nanosim_tpu_torch.ops import (assemble_cuda, cuda_build, gather_cuda, gather_window,
+                                       walk_ablate, walk_cuda)
 
     errors = []
 
@@ -188,7 +212,8 @@ def phase_build():
     t0 = time.time()
     threads = [threading.Thread(target=run, args=(fn,))
                for fn in (walk_cuda.LIBRARY.load, walk_ablate.LIBRARY.load,
-                          gather_cuda.LIBRARY.load, assemble_cuda.LIBRARY.load, native.get_lib)]
+                          gather_cuda.LIBRARY.load, assemble_cuda.LIBRARY.load,
+                          gather_window.LIBRARY.load, native.get_lib)]
     for t in threads:
         t.start()
     for t in threads:
@@ -199,7 +224,7 @@ def phase_build():
         fail("native/fastwriter.cpp did not build")
     print(f"builds done in {time.time() - t0:.1f}s", flush=True)
     for lib in (walk_cuda.LIBRARY, walk_ablate.LIBRARY, gather_cuda.LIBRARY,
-                assemble_cuda.LIBRARY):
+                assemble_cuda.LIBRARY, gather_window.LIBRARY):
         print(f"nvcc -Xptxas -v ({os.path.basename(lib.src)}):\n"
               + (lib.build_log.strip() or "(library was already built)"), flush=True)
         spills = [ln for ln in lib.build_log.splitlines()
@@ -225,21 +250,6 @@ def make_fixture(d: str, genome_mb: float, mean_len: float, sd_len: float, n_kde
     per = int(genome_mb * 1e6 / 4)
     fixtures.make_reference_fasta(ref, [per] * 4, seed=11)
     return prefix, ref
-
-
-def _time_ms(fn, n: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
 
 
 # Operations of one walk step, counted from csrc/walk.cu at the least the
@@ -351,6 +361,7 @@ def _walk_case(kind: str, args, role: str, path: str):
     import torch
 
     from nanosim_tpu_torch.ops import walk_cuda
+    from nanosim_tpu_torch.ops.cuda_build import time_ms
 
     if kind == "aligned":
         name, kern, plain = "aligned_walk", walk_cuda.aligned_steps, walk_cuda.aligned_steps_plain
@@ -389,8 +400,8 @@ def _walk_case(kind: str, args, role: str, path: str):
     # the kernel writes each lane's event prefix and four per-lane words
     out_bytes = 4 * steps + 4 * 4 * B
     bound, bound_by = _bound_ms(in_bytes + out_bytes, ints, f32)
-    ms = _time_ms(lambda: kern(*args), TIMED_LAUNCHES)
-    plain_ms = _time_ms(lambda: plain(*args), 1)
+    ms = time_ms(lambda: kern(*args), TIMED_LAUNCHES)
+    plain_ms = time_ms(lambda: plain(*args), 1)
     blocks = -(-B // walk_cuda.THREADS_PER_BLOCK)
     print(f"kernel {name}: B={B} E={E} ({blocks} blocks of "
           f"{walk_cuda.THREADS_PER_BLOCK}) steps={steps} exact; {ms:.3f} ms "
@@ -446,6 +457,7 @@ def phase_gather(prefix: str, circ_ref: str):
 
     from nanosim_tpu_torch.io.genome import PackedGenome
     from nanosim_tpu_torch.ops import apply_errors, gather_cuda, rng
+    from nanosim_tpu_torch.ops.cuda_build import time_ms
     from nanosim_tpu_torch.profiles import profile
     from nanosim_tpu_torch.sim.genome_mode import GenomeSimulator
 
@@ -484,12 +496,12 @@ def phase_gather(prefix: str, circ_ref: str):
                  f"(max abs err {max_err})")
         # each index read once (4 B), each packed row once, each code written once
         bound, bound_by = _bound_ms(4 * B * L + B * PB + B * L, 0, 0)
-        ms = _time_ms(lambda: gather_cuda.gather_codes(packed, src), TIMED_LAUNCHES)
-        plain_ms = _time_ms(lambda: gather_cuda.gather_codes_plain(packed, src), TIMED_LAUNCHES)
+        ms = time_ms(lambda: gather_cuda.gather_codes(packed, src), TIMED_LAUNCHES)
+        plain_ms = time_ms(lambda: gather_cuda.gather_codes_plain(packed, src), TIMED_LAUNCHES)
         # the library yardstick: one torch.gather of the packed bytes (its
         # int64 index is made outside the timed call)
         idx = (src >> 2).clamp(0, PB - 1).long()
-        library_ms = _time_ms(lambda: torch.gather(packed, 1, idx), TIMED_LAUNCHES)
+        library_ms = time_ms(lambda: torch.gather(packed, 1, idx), TIMED_LAUNCHES)
         results.append({
             "name": "gather_codes", "route": "cuda", "source": "nanosim_tpu_torch/csrc/gather.cu",
             "replaces": "nanosim_tpu/ops/window_gather.py:115", "B": B, "L": L, "PB": PB,
@@ -548,6 +560,7 @@ def _gather_u8_case(parts, idx, role: str, path: str):
     import torch
 
     from nanosim_tpu_torch.ops import gather_cuda
+    from nanosim_tpu_torch.ops.cuda_build import time_ms
 
     B, L = idx.shape
     W, es = parts.shape[1], parts.element_size()
@@ -565,11 +578,11 @@ def _gather_u8_case(parts, idx, role: str, path: str):
     del got, want
     # each index read once (4 B), one element read and one written per position
     bound, bound_by = _bound_ms(B * L * (4 + 2 * es), 0, 0)
-    ms = _time_ms(lambda: gather_cuda.gather_u8(parts, idx), TIMED_LAUNCHES)
-    plain_ms = _time_ms(lambda: gather_cuda.gather_u8_plain(parts, idx), TIMED_LAUNCHES)
+    ms = time_ms(lambda: gather_cuda.gather_u8(parts, idx), TIMED_LAUNCHES)
+    plain_ms = time_ms(lambda: gather_cuda.gather_u8_plain(parts, idx), TIMED_LAUNCHES)
     # the library yardstick: torch.gather with its int64 index made outside
     idx64 = idx.long()
-    library_ms = _time_ms(lambda: torch.gather(parts, 1, idx64), TIMED_LAUNCHES)
+    library_ms = time_ms(lambda: torch.gather(parts, 1, idx64), TIMED_LAUNCHES)
     del idx64
     print(f"kernel {name}: B={B} L={L} W={W} exact; {ms:.4f} ms (plain {plain_ms:.4f} ms, "
           f"torch.gather {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by}, "
@@ -592,6 +605,7 @@ def phase_hp_kernels(prefix: str, circ_ref: str):
 
     from nanosim_tpu_torch.io.genome import PackedGenome
     from nanosim_tpu_torch.ops import apply_errors, assemble_cuda, gather_cuda, homopolymer, rng
+    from nanosim_tpu_torch.ops.cuda_build import time_ms
     from nanosim_tpu_torch.profiles import profile
     from nanosim_tpu_torch.sim import genome_mode
 
@@ -651,14 +665,14 @@ def phase_hp_kernels(prefix: str, circ_ref: str):
         # bytes of per-lane scalars
         n_read = int(total.clamp(0, l_out).long().sum())
         bound, bound_by = _bound_ms(2 * n_read + 2 * B * l_out + 13 * B, 0, 0)
-        ms = _time_ms(lambda: assemble_cuda.assemble_rolls(*args), TIMED_LAUNCHES)
-        plain_ms = _time_ms(lambda: assemble_cuda.assemble_rolls_plain(*args), TIMED_LAUNCHES)
+        ms = time_ms(lambda: assemble_cuda.assemble_rolls(*args), TIMED_LAUNCHES)
+        plain_ms = time_ms(lambda: assemble_cuda.assemble_rolls_plain(*args), TIMED_LAUNCHES)
         # the library yardstick: the one torch.gather of the one-gather
         # formulation, its concatenated input and int64 index made outside
         parts = torch.cat([mid, ht], dim=1)
         idx64 = torch.arange(l_out, device=dev)[None, :].expand(B, l_out).clamp_max(
             parts.shape[1] - 1).contiguous()
-        library_ms = _time_ms(lambda: torch.gather(parts, 1, idx64), TIMED_LAUNCHES)
+        library_ms = time_ms(lambda: torch.gather(parts, 1, idx64), TIMED_LAUNCHES)
         del parts, idx64
         results.append({
             "name": "assemble_rolls", "route": "cuda",
@@ -987,13 +1001,14 @@ def crossing_reads(names, genome_len: int) -> list:
     return out
 
 
-def check_error_profile(path: str, g, n_records: int = 200, crossing=()):
+def check_error_profile(path: str, g, n_records: int = 200, crossing=(), ref_pos=None):
     """ref_base must equal the genome at pos + Seq_pos (wrapping at the
     origin of a circular chromosome) on the first n_records records and on
     every record of the reads in `crossing`.  Records of chimeric reads with
     several segments are passed over (their rows do not say which segment
-    they belong to).  Returns the number of checked records that wrap the
-    origin."""
+    they belong to), and so are those for which `ref_pos(chrom, pos)` (the
+    name's position mapped to the sequence's) gives None.  Returns the number
+    of checked records that wrap the origin."""
     import mmap
 
     idx = g.name_index()
@@ -1009,9 +1024,12 @@ def check_error_profile(path: str, g, n_records: int = 200, crossing=()):
                 fail(f"insertion with ref bases: {line!r}")
             return True
         chrom, pos = name.split("_aligned_")[0].rsplit("_", 1)
+        pos = int(pos) if ref_pos is None else ref_pos(chrom, int(pos))
+        if pos is None:
+            return False
         c = idx[chrom]
         ln = int(g.lengths[c])
-        start = int(pos) + int(seq_pos)
+        start = pos + int(seq_pos)
         if g.slice(c, start % ln, int(elen)).tobytes().decode() != ref_base:
             fail(f"ref_base does not match the genome: {line!r}")
         wraps += start + int(elen) > ln
@@ -1046,7 +1064,8 @@ def check_error_profile(path: str, g, n_records: int = 200, crossing=()):
 
 
 def zero_counters():
-    from nanosim_tpu_torch.ops import assemble_cuda, gather_cuda, walk_ablate, walk_cuda
+    from nanosim_tpu_torch.ops import (assemble_cuda, gather_cuda, gather_window, walk_ablate,
+                                       walk_cuda)
     from nanosim_tpu_torch.sim import output
 
     output.RUN_STATS.reset()
@@ -1057,6 +1076,8 @@ def zero_counters():
     gather_cuda.gather_u8.launches = 0
     gather_cuda.gather_u8.launches_by_width = {}
     assemble_cuda.assemble_rolls.launches = 0
+    gather_window.gather_windowed.launches = 0
+    gather_window.gather_windowed.launches_by_variant = {}
     for fn in (walk_ablate.walk_ablation, walk_ablate.walk_row_select):
         fn.launches = 0
         fn.launches_by_variant = {}
@@ -1224,6 +1245,589 @@ def phase_recon0(d: str, prefix: str, ref: str, card: str, n: int = N_RECON0,
     return launches
 
 
+# --- K8: the windowed byte gather (the measuring kernel of the gather window) ---
+
+
+def _ragged_window_inputs(B: int, L: int, PB: int, seed: int):
+    """Packed rows, near-contiguous indices and their window starts at a
+    ragged shape (B not a multiple of 8, L not of 1,024), from numpy: lane 0
+    reads past the row's end (window rows that do not exist read as zeros),
+    lane 1 has a tile whose span exceeds a 2,048-code (W4) window."""
+    import numpy as np
+    import torch
+
+    from nanosim_tpu_torch.ops import gather_window
+
+    rs = np.random.default_rng(seed)
+    packed = rs.integers(0, 256, (B, PB), dtype=np.uint8)
+    drift = np.cumsum(rs.integers(-1, 2, (B, L)), axis=1)
+    idx = np.clip(rs.integers(0, 64, (B, 1)) + np.arange(L)[None, :] + drift, 0, 4 * PB - 1)
+    idx[0, -700:] = 4 * PB - 1 - np.arange(700)[::-1] // 4
+    idx[1, 1024:1024 + 300] += 2500
+    idx = np.clip(idx, 0, 4 * PB - 1).astype(np.int32)
+    idx_t = torch.from_numpy(idx).cuda()
+    n_tiles = -(-L // gather_window.TILE)
+    ws, _ = gather_window.window_starts(idx_t, torch.ones_like(idx_t, dtype=torch.bool), n_tiles)
+    # lane 0's last window starts past the row's end by a row
+    ws[0, -1] = ((PB // 128 + 1) * 128) * 4
+    return torch.from_numpy(packed).cuda(), idx_t, ws.contiguous()
+
+
+def phase_gather_window(card: str):
+    """K8 (bench/gather_variants.py:75) on the experiment's inputs (B=1,024,
+    L=19,456, 4,608 packed bytes, realistic_idx from RandomState(0)) and at a
+    ragged shape: every instance against its plain version, then, with the
+    counters zeroed, gather_window.measure_gather_variants: ms per launch of
+    every instance beside the bound, the plain version and one torch.gather
+    of the same bytes, and the W4 coverage check."""
+    import torch
+
+    from nanosim_tpu_torch.ops import gather_window as gw
+    from nanosim_tpu_torch.ops.cuda_build import time_ms
+
+    dev = torch.device("cuda")
+    rec = gw.experiment_inputs(dev)
+    ragged = _ragged_window_inputs(37, 3000, 770, 9)
+    plain_ms = {}
+    for role, (packed, idx, ws) in (("record", rec[:3]), ("", ragged)):
+        B, L = idx.shape
+        for kt, w8v in gw.INSTANCES:
+            got = gw.gather_windowed(packed, idx, ws, kt, w8v)
+            want = gw.gather_windowed_plain(packed, idx, ws, w8v)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.dtype != want.dtype:
+                fail(f"gather_windowed KT{kt} W{w8v} B={B} L={L}: kernel output "
+                     f"{tuple(got.shape)} {got.dtype} != plain {tuple(want.shape)} {want.dtype}")
+            err = int((got.long() - want.long()).abs().max())
+            if err != 0:
+                fail(f"gather_windowed KT{kt} W{w8v} B={B} L={L}: kernel differs from its plain "
+                     f"version (max abs err {err})")
+            if role:
+                plain_ms[kt, w8v] = time_ms(
+                    lambda: gw.gather_windowed_plain(packed, idx, ws, w8v), TIMED_LAUNCHES)
+        print(f"kernel gather_windowed: B={B} L={L} PB={packed.shape[1]}: instances "
+              f"{gw.INSTANCES} exact against the plain version; W4 windows cover every tile: "
+              f"{gw.window_covers(idx, ws, 4)}", flush=True)
+    packed, idx, ws, want = rec
+    B, L = idx.shape
+    PB = packed.shape[1]
+    zero_counters()
+    res = gw.measure_gather_variants(dev, launches=TIMED_LAUNCHES, inputs=rec)
+    counts = dict(gw.gather_windowed.launches_by_variant)
+    # the library yardstick: one torch.gather of the packed bytes (its int64
+    # index made outside the timed call)
+    i64 = (idx >> 2).long()
+    library_ms = time_ms(lambda: torch.gather(packed, 1, i64), TIMED_LAUNCHES)
+    del i64
+    # each index read once (4 B), each result written once (4 B), each
+    # packed row read once
+    bound, bound_by = _bound_ms(8 * B * L + B * PB, 0, 0)
+    results = []
+    for name, v in res["instances"].items():
+        kt, w8v = v["kt"], v["w8v"]
+        print(f"experiment gather_windowed[{name}] (the experiment's {', '.join(v['names'])}): "
+              f"{v['ms']:.4f} ms (plain {plain_ms[kt, w8v]:.4f} ms, torch.gather "
+              f"{library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by}, {v['ms'] / bound:.1f}x) "
+              f"correct={v['correct']} window covers={v['window_covers']}; {card}", flush=True)
+        if counts.get((kt, w8v), 0) == 0:
+            fail(f"gather_windowed KT{kt} W{w8v} was not launched by measure_gather_variants")
+        results.append({
+            "name": f"gather_windowed[{name}]", "route": "cuda",
+            "source": "nanosim_tpu_torch/csrc/gather_window.cu",
+            "replaces": "bench/gather_variants.py:75", "B": B, "L": L, "PB": PB,
+            "kt": kt, "w8v": w8v, "variants": v["names"], "launches": counts[kt, w8v],
+            "max_abs_err": 0.0, "ms": v["ms"], "plain_ms": plain_ms[kt, w8v], "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms, "correct": v["correct"],
+            "role": "record", "path": "experiments",
+        })
+    return results
+
+
+# --- the transcriptome slice ---------------------------------------------------
+
+TRX_BATCH = BATCH // 4  # bench.py:319
+N_TRX = 100000  # transcripts (GENCODE's human set is about 250,000)
+TRX_MEAN = 1800
+N_TRX_READS = 10000
+N_TRX_RECON0 = 2000
+N_TRX_HP = 1000
+N_IR_TRX = 2000
+IR_GENOME = 10_000_000
+# exon counts of the longest structures: TTN's longest transcript has 363
+# exons, and a few hundred human genes have more than 100
+IR_LONG_EXONS = (363, 250, 180, 120)
+IR_MARKOV = ((0.6, 0.4), (0.55, 0.45), (0.35, 0.65))  # bench.py:295-298
+
+
+def make_ir_structures(d: str, n_transcripts: int, genome_len: int, seed: int,
+                       long_exons=()):
+    """A genome of one chromosome, transcripts with introns between their
+    exons and their GFF3 structures, in the layout of the fixture writer's
+    make_ir_fixture (every structure on the '+' strand: on the '-' strand the
+    JAX package's two routes disagree, ROADMAP section 3).  Exon counts are
+    lognormal (median 7, as in GENCODE's human transcripts, at most 80)
+    except for the first structures, which have `long_exons` exons each (a
+    structure of n exons has 2n - 1 features); exons are 80-320 bp, introns
+    80-400 bp.  Returns (genome_fa, trx_fa, [(name, length)])."""
+    import numpy as np
+
+    from nanosim_tpu_torch.io.genome import PackedGenome
+    from nanosim_tpu_torch.profiles import fixtures
+
+    rng = np.random.default_rng(seed)
+    genome_fa = os.path.join(d, "genome.fa")
+    fixtures.make_reference_fasta(genome_fa, [genome_len], seed=seed + 1)
+    g = PackedGenome.from_fasta(genome_fa)
+    trx_fa = os.path.join(d, "transcripts.fa")
+    out = []
+    cursor = 100
+    with open(trx_fa, "w") as tf, open(os.path.join(d, "training_added_intron_final.gff3"),
+                                       "w") as gf:
+        gf.write("##gff-version 3\n")
+        for i in range(n_transcripts):
+            name = f"ENSTIR{i:06d}"
+            feats, pos = [], cursor
+            n_exon = (long_exons[i] if i < len(long_exons)
+                      else int(np.clip(np.rint(rng.lognormal(np.log(7), 0.75)), 2, 80)))
+            for e in range(n_exon):
+                elen = int(rng.integers(80, 320))
+                feats.append(("exon", pos, pos + elen))
+                pos += elen
+                if e < n_exon - 1:
+                    ilen = int(rng.integers(80, 400))
+                    feats.append(("intron", pos, pos + ilen))
+                    pos += ilen
+            cursor = pos + int(rng.integers(200, 500))
+            if cursor >= genome_len:
+                raise ValueError("the IR genome is too short for its transcripts")
+            seq = np.concatenate([g.flat[s:e] for t, s, e in feats if t == "exon"])
+            tf.write(f">{name}\n{seq.tobytes().decode()}\n")
+            for t, s, e in feats:
+                gf.write(f"chr1\tfix\t{t}\t{s + 1}\t{e}\t.\t+\t.\ttranscript_id={name}\n")
+            out.append((name, len(seq)))
+    return genome_fa, trx_fa, out
+
+
+def make_trx_fixtures(d: str, n_trx: int, ir_trx: int, ir_genome: int, n_kde: int = 2000,
+                      long_exons=()):
+    """The transcriptome model (bench.py:287-289: mean read 1,000, sd 300, 2D
+    mean 1,600) with the IR Markov of bench.py:295-298, a transcriptome of
+    n_trx transcripts (mean 1,800 bp) with its expression table and a polyA
+    list of every transcript, and the IR structures.  Returns a dict of
+    paths."""
+    import numpy as np
+
+    from nanosim_tpu_torch.profiles import error_model, fixtures
+
+    os.makedirs(d, exist_ok=True)
+    prefix = os.path.join(d, "training")
+    fixtures.make_model_dir(prefix, mean_read_len=1000, sd_read_len=300, transcriptome=True,
+                            mean_2d_ref_len=1600, n_kde_points=n_kde)
+    error_model.write_ir_markov(prefix + "_IR_markov_model", np.array(IR_MARKOV))
+    trx_fa = os.path.join(d, "trx.fa")
+    trxs = fixtures.make_transcript_reference(trx_fa, n_transcripts=n_trx, mean_len=TRX_MEAN,
+                                              seed=3)
+    exp = os.path.join(d, "exp.tsv")
+    fixtures.make_expression_tsv(exp, trxs, seed=4)
+    polya = os.path.join(d, "polya.txt")
+    with open(polya, "w") as f:
+        f.write("".join(name + "\n" for name, _ in trxs))
+    genome_fa, ir_trx_fa, ir_trxs = make_ir_structures(d, ir_trx, ir_genome, 7, long_exons)
+    ir_exp = os.path.join(d, "ir_exp.tsv")
+    fixtures.make_expression_tsv(ir_exp, ir_trxs, seed=8)
+    return {"prefix": prefix, "trx": trx_fa, "exp": exp, "polya": polya, "genome": genome_fa,
+            "ir_trx": ir_trx_fa, "ir_exp": ir_exp}
+
+
+def ir_ref_pos(gff3: str):
+    """The position in its transcript of an intron-retention read's name.
+    A read whose transcript retained an intron is cut from the genome's
+    intervals and named by its genomic start; if it took no base of the
+    retained intron (no ';' in its name) it lies on exons only, so its
+    genomic start maps into the transcript.  Other reads are named by their
+    transcript position.  None where the two readings overlap or the
+    genomic start is in no exon ('+' strand structures)."""
+    exons = {}
+    with open(gff3) as f:
+        for line in f:
+            cols = line.split("\t")
+            if len(cols) > 8 and cols[2] == "exon":
+                exons.setdefault(cols[8].strip().split("=")[1], []).append(
+                    (int(cols[3]) - 1, int(cols[4])))
+
+    def ref_pos(chrom: str, pos: int):
+        ex = exons.get(chrom)
+        if not ex or pos < ex[0][0]:
+            return pos
+        if pos < sum(e - s for s, e in ex):
+            return None
+        off = 0
+        for s, e in ex:
+            if s <= pos < e:
+                return off + pos - s
+            off += e - s
+        return None
+
+    return ref_pos
+
+
+# run kinds: (transcriptome, genome, expression, kwargs)
+def _trx_run_args(fx: dict, kind: str):
+    cdna = dict(model_ir=False, polya=fx["polya"], basecaller="guppy")
+    return {
+        "cDNA": (fx["trx"], "", fx["exp"], cdna),
+        "direct RNA": (fx["trx"], "", fx["exp"], dict(cdna, uracil=True)),
+        "intron retention": (fx["ir_trx"], fx["genome"], fx["ir_exp"], dict(model_ir=True)),
+        "-hp": (fx["trx"], "", fx["exp"], dict(cdna, kmer_bias=HP_K, homopolymer=True)),
+        "--perfect": (fx["trx"], "", fx["exp"], dict(cdna, perfect=True)),
+    }[kind]
+
+
+def _run_trx(fx: dict, kind: str, out: str, n: int, batch: int, device: str, seed: int = SEED):
+    from nanosim_tpu_torch.sim.run_transcriptome import simulate_transcriptome
+
+    trx, genome, exp, kw = _trx_run_args(fx, kind)
+    return simulate_transcriptome(trx, genome, exp, fx["prefix"], out, n, fastq=True, seed=seed,
+                                  batch=batch, device=device, **kw)
+
+
+def phase_trx_cuda_vs_cpu(d: str):
+    """The transcriptome and --perfect runs at a small size, CUDA against the
+    CPU path: byte-identical files (the CPU path is held byte-identical to
+    the JAX package by the test suite)."""
+    from nanosim_tpu_torch.profiles import fixtures
+
+    fx = make_trx_fixtures(os.path.join(d, "trx_small"), 25, 12, 150000, n_kde=300)
+    gprefix, gref = make_fixture(os.path.join(d, "perfect_small"), 0.4, 700, 250, 300)
+    gcirc = os.path.join(d, "perfect_small", "circ.fa")
+    fixtures.make_reference_fasta(gcirc, [200000], seed=12, with_iupac=True, hp_bias=0.6)
+    runs = [(k, None) for k in ("cDNA", "direct RNA", "intron retention", "-hp", "--perfect")]
+    runs += [("cDNA", "0"), ("intron retention", "0")]
+    for kind, recon in runs:
+        outs = {}
+        with recon_env(recon):
+            for dev in ("cpu", "cuda"):
+                out = os.path.join(d, "trx_small", f"{kind.replace(' ', '_')}{recon or ''}_{dev}")
+                _run_trx(fx, kind, out, 200, 64, dev)
+                outs[dev] = [sha(out + s) for s in FILES if os.path.exists(out + s)]
+        if outs["cpu"] != outs["cuda"]:
+            fail(f"small transcriptome {kind} run (RECON={recon}): CUDA output differs from the "
+                 f"CPU output: {outs}")
+        print(f"small transcriptome {kind} run{' NANOSIM_TPU_RECON=0' if recon else ''}: CUDA "
+              "files byte-identical to the CPU path", flush=True)
+    from nanosim_tpu_torch.sim.run import simulate_genome
+
+    for label, ref, dna, recon, k in (("linear", gref, "linear", None, None),
+                                      ("circular", gcirc, "circular", None, None),
+                                      ("linear NANOSIM_TPU_RECON=0", gref, "linear", "0", None),
+                                      ("-hp circular", gcirc, "circular", None, HP_K)):
+        outs = {}
+        with recon_env(recon):
+            for dev in ("cpu", "cuda"):
+                out = os.path.join(d, "perfect_small", f"{dna}{recon or ''}{k or ''}_{dev}")
+                simulate_genome(ref, gprefix, out, 300, fastq=True, perfect=True, seed=SEED,
+                                batch=64, device=dev, dna_type=dna, kmer_bias=k)
+                outs[dev] = [sha(out + s) for s in FILES[:2]]
+        if outs["cpu"] != outs["cuda"]:
+            fail(f"small genome --perfect {label} run: CUDA output differs from the CPU output")
+        print(f"small genome --perfect {label} run: CUDA files byte-identical to the CPU path",
+              flush=True)
+
+
+def phase_trx_kernels(fx: dict):
+    """K1, K2 and K4 at the transcriptome paths' shapes, each against its
+    plain version and timed as at the other shapes: the walks on the inputs
+    the cDNA path's first meta-only batch and its unaligned pass's first
+    batch give them; K4 on the direct-RNA unaligned pass's first
+    read-emitting batch, on the first read-emitting aligned batch of cDNA
+    (the RECON=0 route) and of `-hp` (bytes and 16-bit); K1 and K4 on the
+    intron-retention batches (meta-only and read-emitting).  Each batch's
+    peak device memory, and the IR walk's launches (traced) and time per
+    batch at the fixture's f_max and at two smaller caps."""
+    import dataclasses
+
+    import torch
+
+    from nanosim_tpu_torch.io.genome import PackedGenome
+    from nanosim_tpu_torch.ops import apply_errors, error_walk, gather_cuda, homopolymer, rng
+    from nanosim_tpu_torch.ops import walk_cuda
+    from nanosim_tpu_torch.ops.cuda_build import time_ms
+    from nanosim_tpu_torch.profiles import profile
+    from nanosim_tpu_torch.sim import ir as ir_mod
+    from nanosim_tpu_torch.sim.run_transcriptome import POLYA_SCALE, TranscriptomeSimulator
+    from nanosim_tpu_torch.sim.unaligned_mode import UnalignedSimulator
+
+    dev = torch.device("cuda")
+    slots = torch.arange(TRX_BATCH, dtype=torch.int64, device=dev)
+    trx = PackedGenome.from_fasta(fx["trx"])
+    seq_len = dict(zip(trx.names, (int(x) for x in trx.lengths)))
+    expr = profile.load_expression(fx["exp"], seq_len)
+
+    def cdna_sim(k):
+        prof = profile.load_profile(fx["prefix"], mode="transcriptome", fastq=True,
+                                    homopolymer=k is not None, polya_path=fx["polya"])
+        return TranscriptomeSimulator(trx, prof, expr, fastq=True,
+                                      polya_scale=POLYA_SCALE["guppy"], batch=TRX_BATCH,
+                                      kmer_bias=k, device=dev), prof
+
+    sim, prof = cdna_sim(None)
+    usim = UnalignedSimulator(trx, prof, fastq=True, batch=TRX_BATCH, uracil=True,
+                              transcriptome_mode=True, device=dev)
+    print(f"transcriptome plan: {trx.n_chrom} transcripts ({trx.total_len} bp), batch "
+          f"{TRX_BATCH}, l_cap={sim.l_cap} l_out={sim.l_out} ht_cap={sim.ht_cap} "
+          f"e_max={sim.e_max}; unaligned l_cap={usim.l_cap} e_max={usim.e_max}", flush=True)
+    walks, rows = {}, []
+    proxy = types.SimpleNamespace(**{k: getattr(walk_cuda, k) for k in dir(walk_cuda)
+                                     if not k.startswith("__")})
+
+    def cap_aligned(*args):
+        walks["aligned"] = args
+        return walk_cuda.aligned_steps(*args)
+
+    def cap_unaligned(*args):
+        walks["unaligned"] = args
+        return walk_cuda.unaligned_steps(*args)
+
+    proxy.aligned_steps, proxy.unaligned_steps = cap_aligned, cap_unaligned
+
+    def cap_gather(parts, idx):
+        rows.append((parts, idx))
+        return gather_cuda.gather_u8(parts, idx)
+
+    gather_ns = types.SimpleNamespace(gather_u8=cap_gather)
+    gathers = [(apply_errors, "gather_cuda", gather_ns), (homopolymer, "gather_cuda", gather_ns)]
+    base = rng.base_key(SEED, rng.STREAM_ALIGNED, device=dev)
+    ubase = rng.base_key(SEED, rng.STREAM_UNALIGNED, device=dev)
+    out, peak = _capture_batch(lambda: sim.batch_fn(emit_reads=False)(base, slots),
+                               [(error_walk, "walk_cuda", proxy)])
+    print(f"transcriptome meta-only batch: peak device memory {peak / 1e9:.3f} GB; "
+          f"{int(out.valid.sum())} valid lanes of {TRX_BATCH}", flush=True)
+    out, peak = _capture_batch(lambda: usim.batch_fn()(ubase, slots),
+                               [(error_walk, "walk_cuda", proxy)] + gathers)
+    print(f"direct-RNA unaligned batch (read-emitting, raw bytes): peak device memory "
+          f"{peak / 1e9:.3f} GB; {int(out.valid.sum())} valid lanes", flush=True)
+    del out
+    if sorted(walks) != ["aligned", "unaligned"] or len(rows) != 1:
+        fail(f"the transcriptome batches reached the walks {sorted(walks)} and the element "
+             f"gather {len(rows)} times")
+    results = [_walk_case("aligned", walks["aligned"], "record", "transcriptome"),
+               _walk_case("unaligned", walks["unaligned"], "record", "transcriptome"),
+               _gather_u8_case(*rows[0], "record", "direct RNA")]
+    walks.clear()
+    rows.clear()
+
+    # the read-emitting aligned batches: cDNA (the RECON=0 route: bytes
+    # through materialize_read) and -hp (bytes, then 16-bit elements through
+    # resize_homopolymers)
+    for k, path, widths in ((None, "cDNA RECON=0", [1]), (HP_K, "transcriptome -hp", [1, 2])):
+        esim = sim if k is None else cdna_sim(k)[0]
+        out, peak = _capture_batch(lambda: esim.batch_fn()(base, slots), gathers)
+        if [p_.element_size() for p_, _ in rows] != widths:
+            fail(f"the {path} read-emitting batch called the element gather at widths "
+                 f"{[p_.element_size() for p_, _ in rows]}, not {widths}")
+        print(f"{path} read-emitting batch: peak device memory {peak / 1e9:.3f} GB; "
+              f"{int(out.valid.sum())} valid lanes", flush=True)
+        del out
+        for parts, idx in rows:
+            results.append(_gather_u8_case(parts, idx, "record", path))
+        rows.clear()
+        torch.cuda.empty_cache()
+
+    itrx = PackedGenome.from_fasta(fx["ir_trx"])
+    iprof = profile.load_profile(fx["prefix"], mode="transcriptome", fastq=True, model_ir=True)
+    iexpr = profile.load_expression(fx["ir_exp"], dict(zip(itrx.names,
+                                                           (int(x) for x in itrx.lengths))))
+    isim = TranscriptomeSimulator(itrx, iprof, iexpr, fastq=True, model_ir=True,
+                                  ir_genome=PackedGenome.from_fasta(fx["genome"]),
+                                  batch=TRX_BATCH, device=dev)
+    if not isim.with_ir:
+        fail("the intron-retention fixture has no eligible transcript")
+    ir_calls = []
+    ir_walk = ir_mod.ir_walk_and_extract
+
+    def cap_ir(*args):
+        ir_calls.append(args)
+        return ir_walk(*args)
+
+    out, peak = _capture_batch(lambda: isim.batch_fn(emit_reads=False)(base, slots),
+                               [(ir_mod, "ir_walk_and_extract", cap_ir),
+                                (error_walk, "walk_cuda", proxy)])
+    if len(ir_calls) != 1 or "aligned" not in walks:
+        fail(f"the intron-retention batch called the IR walk {len(ir_calls)} times and reached "
+             f"the walks {sorted(walks)}")
+    n_has_ir = int(out.has_ir.sum())
+    del out
+    results.append(_walk_case("aligned", walks["aligned"], "record", "intron retention"))
+    walks.clear()
+    out, epeak = _capture_batch(lambda: isim.batch_fn()(base, slots), gathers)
+    if [p_.element_size() for p_, _ in rows] != [1]:
+        fail(f"the intron-retention read-emitting batch called the element gather at widths "
+             f"{[p_.element_size() for p_, _ in rows]}")
+    del out
+    results.append(_gather_u8_case(*rows[0], "record", "intron retention RECON=0"))
+    rows.clear()
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    f_max = isim.ir_tables.f_max
+    batch_ms = time_ms(lambda: isim.batch_fn(emit_reads=False)(base, slots), 3)
+    print(f"intron-retention batch (f_max={f_max}, {itrx.n_chrom} structured transcripts): "
+          f"peak device memory {peak / 1e9:.3f} GB meta-only, {epeak / 1e9:.3f} GB "
+          f"read-emitting; {n_has_ir} of {TRX_BATCH} lanes retain an intron; the meta-only "
+          f"batch takes {batch_ms:.2f} ms", flush=True)
+    # the IR walk at the fixture's f_max and, on the same inputs, with the
+    # structure tables cut to fewer feature steps (the work of a table whose
+    # longest structure has that many features)
+    for cap in sorted({7, 63, f_max}):
+        if cap > f_max:
+            continue
+        args = list(ir_calls[0])
+        args[4] = dataclasses.replace(args[4], f_max=cap)
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CUDA]) as tp:
+            ir_walk(*args)
+            torch.cuda.synchronize()
+        n_kernels = sum(e.count for e in tp.key_averages()
+                        if (getattr(e, "self_device_time_total", None)
+                            or getattr(e, "self_cuda_time_total", 0)) > 0)
+        ms = time_ms(lambda: ir_walk(*args), 3)
+        print(f"IR walk at f_max={cap}: {n_kernels} device kernels per batch (traced), "
+              f"{ms:.2f} ms per batch of {TRX_BATCH}", flush=True)
+    return results
+
+
+def phase_trx_path(label: str, d: str, fx: dict, kind: str, n: int, card: str, kernels,
+                   traced_rerun: bool = True, recon=None):
+    """Drive one transcriptome path through `simulate_transcriptome(device=
+    "cuda")` with the counters zeroed just before and read just after; every
+    kernel in `kernels` must have launched, no lane may have needed the
+    checksum fallback, the record counts must match, ref_base must match the
+    transcript on 200 records, and a traced same-seed rerun must give the
+    same bytes."""
+    import torch
+
+    from nanosim_tpu_torch.io.genome import PackedGenome
+
+    out1 = os.path.join(d, label, "run1", "sim")
+    os.makedirs(os.path.dirname(out1))
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with recon_env(recon):
+        counts = _run_trx(fx, kind, out1, n, TRX_BATCH, "cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = read_counters()
+    print(f"{label} path: {counts} in {dt:.2f}s -> {n / dt:.1f} reads/s on {card}; "
+          f"launches {launches}", flush=True)
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        fail(f"{missing} kernels were not launched on the {label} path: {launches}")
+    if launches["checksum_fallback_lanes"] != 0:
+        fail(f"{launches['checksum_fallback_lanes']} lanes failed the host replay's checksum")
+    names = read_names(out1 + "_aligned_reads.fastq")
+    nu = (len(read_names(out1 + "_unaligned_reads.fastq"))
+          if os.path.exists(out1 + "_unaligned_reads.fastq") else 0)
+    if (len(names), nu) != (counts["aligned"], counts["unaligned"]):
+        fail(f"read counts {(len(names), nu)} != requested {counts}")
+    n_ir = sum(1 for nm in names if "_RetainedIntron_" in nm)
+    trx_key = "ir_trx" if kind == "intron retention" else "trx"
+    if kind != "--perfect":
+        # records of reads with bases of a retained intron (names with ';')
+        # are passed over: their ref bases come from genomic intervals
+        check_error_profile(
+            out1 + "_aligned_error_profile", PackedGenome.from_fasta(fx[trx_key]),
+            ref_pos=ir_ref_pos(os.path.join(os.path.dirname(fx["prefix"]),
+                                            "training_added_intron_final.gff3"))
+            if kind == "intron retention" else None)
+    print(f"{label} path: ref_base checked on 200 records; {n_ir} reads retain an intron",
+          flush=True)
+    if kind == "intron retention" and n_ir == 0:
+        fail("no read retains an intron on the intron-retention path")
+    if kind in ("direct RNA",):
+        with open(out1 + "_aligned_reads.fastq", "rb") as f:
+            head = f.read(1 << 20)
+        if b"T" in head.split(b"\n")[1] or b"U" not in head:
+            fail("direct RNA reads carry T or no U")
+    if not traced_rerun:
+        return launches, n / dt, None, out1
+    out2 = os.path.join(d, label, "run2", "sim")
+    os.makedirs(os.path.dirname(out2))
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.time()
+    with recon_env(recon), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _run_trx(fx, kind, out2, n, TRX_BATCH, "cuda")
+        torch.cuda.synchronize()
+    dt2 = time.time() - t0
+    for s in FILES:
+        if os.path.exists(out1 + s) and sha(out1 + s) != sha(out2 + s):
+            fail(f"{label} path: second run with the same seed differs in {s}")
+    print(f"{label} path: second run byte-identical ({n / dt2:.1f} reads/s, traced)", flush=True)
+    report_trace(prof, dt2)
+    return launches, n / dt, n / dt2, out1
+
+
+def phase_trx_recon0(d: str, fx: dict, kind: str, card: str, n: int = N_TRX_RECON0):
+    """NANOSIM_TPU_RECON=0 at full width: the read-emitting program's files
+    must equal the host reconstruction's for the same seed and size."""
+    import torch
+
+    outs, launches = {}, None
+    for recon in ("0", None):
+        out = os.path.join(d, f"trx_recon{recon or ''}_{kind.replace(' ', '_')}", "sim")
+        os.makedirs(os.path.dirname(out))
+        zero_counters()
+        with recon_env(recon):
+            t0 = time.time()
+            _run_trx(fx, kind, out, n, TRX_BATCH, "cuda")
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        got = read_counters()
+        if got["checksum_fallback_lanes"] != 0:
+            fail(f"{got['checksum_fallback_lanes']} lanes failed the host replay's checksum")
+        if recon == "0":
+            launches = got
+            if any(got[k] == 0 for k in ("aligned", "unaligned", "gather_u8")):
+                fail(f"a kernel was not launched with {kind} NANOSIM_TPU_RECON=0: {got}")
+        print(f"{kind} NANOSIM_TPU_RECON={recon or 'unset'}: {n} reads in {dt:.2f}s -> "
+              f"{n / dt:.1f} reads/s on {card}; launches {got}", flush=True)
+        outs[recon] = [sha(out + s) for s in FILES]
+    if outs["0"] != outs[None]:
+        fail(f"{kind} NANOSIM_TPU_RECON=0 files differ from the host reconstruction's: {outs}")
+    print(f"{kind} NANOSIM_TPU_RECON=0: files byte-identical to the host-reconstruction route",
+          flush=True)
+    return launches
+
+
+def run_trx_slice(d: str, card: str):
+    """Phases 12-14: the transcriptome and --perfect runs CUDA against CPU,
+    the transcriptome kernels' shapes, and the transcriptome paths at full
+    width.  Returns (kernel rows, {path: launches}, rates)."""
+    phase_trx_cuda_vs_cpu(d)
+    t0 = time.time()
+    fx = make_trx_fixtures(os.path.join(d, "trx"), N_TRX, N_IR_TRX, IR_GENOME,
+                           long_exons=IR_LONG_EXONS)
+    print(f"transcriptome fixture ({N_TRX} transcripts, mean {TRX_MEAN} bp; {N_IR_TRX} "
+          f"structured transcripts on {IR_GENOME} bp) in {time.time() - t0:.1f}s", flush=True)
+    rows = phase_trx_kernels(fx)
+    paths, rates = {}, {}
+    for label, kind, n, kernels, traced in (
+            ("transcriptome", "cDNA", N_TRX_READS, ("aligned", "unaligned"), True),
+            ("direct RNA", "direct RNA", N_TRX_READS, ("aligned", "unaligned", "gather_u8"),
+             False),
+            ("intron retention", "intron retention", N_TRX_READS, ("aligned", "unaligned"),
+             False),
+            ("transcriptome -hp", "-hp", N_TRX_HP, ("aligned", "unaligned", "gather_u8"),
+             False)):
+        launches, rate, rate2, _ = phase_trx_path(label, d, fx, kind, n, card, kernels,
+                                                  traced_rerun=traced)
+        paths[label] = launches
+        rates[label] = (rate, rate2)
+    for kind in ("cDNA", "intron retention"):
+        paths[f"{kind} RECON=0"] = phase_trx_recon0(d, fx, kind, card)
+    return rows, paths, rates
+
+
 def report_trace(prof, wall_s: float):
     """Device busy time (sum of kernel and copy self times on the one stream
     in use) against the run's wall time, and the top device consumers."""
@@ -1257,14 +1861,41 @@ def _path_launches(k: dict, launches: dict) -> int:
     return launches["assemble"]
 
 
+def _launches_by_name(k: dict, launches: dict) -> int:
+    """The launches of kernel row `k`'s kernel among one path's counters, at
+    every shape (K4: at its element width)."""
+    name = k["name"]
+    if name == "aligned_walk":
+        return launches["aligned"]
+    return _path_launches(k, launches)
+
+
+def attach_launches(cases, by_path: dict, recon0_of: dict, trx_paths: dict):
+    """Give every kernel row of a path its launches on that path's run (and
+    on the RECON=0 run beside it); fail for a recorded row whose kernel that
+    run did not launch at its shape."""
+    for k in cases:
+        if not k["role"]:
+            continue
+        k["launches"] = _path_launches(k, by_path[k["path"]])
+        if k["path"] in recon0_of:  # the RECON=0 run beside it
+            k["launches_recon0"] = _path_launches(k, recon0_of[k["path"]])
+        if k["role"] == "record" and k["launches"] == 0:
+            fail(f"{k['name']} was not launched on the {k['path']} path")
+        if k["path"] in trx_paths:
+            # every transcriptome path's launches of this kernel, at any shape
+            k["launches_by_transcriptome_path"] = {
+                label: _launches_by_name(k, got) for label, got in trx_paths.items()}
+
+
 def main():
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--quick", action="store_true",
-                    help="a short check of the newest slice only (builds, the walk experiments, "
-                         "the chimeric kernel shapes, the small chimeric CUDA-vs-CPU runs); "
-                         "without it every phase runs")
+                    help="a check of the newest slice only (builds, the windowed-gather "
+                         "experiment, the transcriptome and --perfect phases); without it every "
+                         "phase runs")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(REPO, "nanosim_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
@@ -1277,6 +1908,15 @@ def main():
 
     tmp_root = "/dev/shm" if os.path.isdir("/dev/shm") else None
     with tempfile.TemporaryDirectory(dir=tmp_root) as d:
+        if args.quick:
+            phase_gather_window(card)
+            trx_rows, trx_paths, _ = run_trx_slice(d, card)
+            attach_launches(trx_rows, trx_paths, {}, trx_paths)
+            print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
+                                          for k in trx_rows]}))
+            print(json.dumps({"ok": True, "quick": True, "seconds": time.time() - t_start,
+                              "device": {"platform": "gpu", "kind": kind, "count": count}}))
+            return
         t0 = time.time()
         prefix, ref = make_fixture(os.path.join(d, "bench"), GENOME_MB, 8000, 2200, 2000)
         error_model.write_chimeric_info(prefix + "_chimeric_info", CHI_SEGMENT_MEAN, 0.2)
@@ -1284,13 +1924,6 @@ def main():
         fixtures.make_reference_fasta(circ_ref, [CIRC_LEN], seed=13, with_iupac=True)
         print(f"fixture ({GENOME_MB} Mb genome, {CIRC_LEN} bp circular chromosome) in "
               f"{time.time() - t0:.1f}s", flush=True)
-        if args.quick:
-            phase_experiments(prefix, ref, card)
-            phase_chimeric_kernels(prefix, ref, circ_ref)
-            phase_cuda_vs_cpu(d, only_chimeric=True)
-            print(json.dumps({"ok": True, "quick": True, "seconds": time.time() - t_start,
-                              "device": {"platform": "gpu", "kind": kind, "count": count}}))
-            return
         cases = (phase_kernels(prefix, ref) + phase_gather(prefix, circ_ref)
                  + phase_hp_kernels(prefix, circ_ref)
                  + phase_chimeric_kernels(prefix, ref, circ_ref))
@@ -1321,19 +1954,15 @@ def main():
             "chimeric -hp", d, prefix, circ_ref, N_CHI_HP, card, "circular",
             ("aligned", "unaligned", "gather_u8"), kmer_bias=HP_K, traced_rerun=False,
             batch=CHI_BATCH, chimeric=True)
+        trx_rows, trx_paths, trx_rates = run_trx_slice(d, card)
+        cases += trx_rows
+        experiments += phase_gather_window(card)
     if chi_l["packed_spills"] != 0:
         fail(f"{chi_l['packed_spills']} chimeric batches spilled their packed walk lanes")
     by_path = {"main": main_l, "circular": circ_l, "-hp": hp_l, "chimeric": chi_l,
-               "chimeric circular": chic_l, "chimeric -hp": chih_l}
+               "chimeric circular": chic_l, "chimeric -hp": chih_l, **trx_paths}
     recon0_of = {"circular": recon0_l, "-hp": hp_recon0_l, "chimeric circular": chi_recon0_l}
-    for k in cases:
-        if not k["role"]:
-            continue
-        k["launches"] = _path_launches(k, by_path[k["path"]])
-        if k["path"] in recon0_of:  # the RECON=0 run beside it
-            k["launches_recon0"] = _path_launches(k, recon0_of[k["path"]])
-        if k["role"] == "record" and k["launches"] == 0:
-            fail(f"{k['name']} was not launched on the {k['path']} path")
+    attach_launches(cases, by_path, recon0_of, trx_paths)
     cases += experiments
     print(f"main path reads/s: {rate1:.1f}, {rate2:.1f} traced; circular path reads/s: "
           f"{crate1:.1f}, {crate2:.1f} traced; -hp path reads/s: {hrate1:.1f}, {hrate2:.1f} "
@@ -1344,6 +1973,9 @@ def main():
           f"{chi_l['packed_spills']} packed spills; chimeric circular (device-materialized): "
           f"{chcrate:.1f}; chimeric -hp: {chhrate:.1f}; all phases in "
           f"{time.time() - t_start:.1f}s ({card})", flush=True)
+    print("transcriptome paths reads/s ({}): {}".format(card, ", ".join(
+        f"{label} {r1:.1f}" + (f" ({r2:.1f} traced)" if r2 else "")
+        for label, (r1, r2) in trx_rates.items())), flush=True)
     print(json.dumps({"kernel_cases": [k for k in cases if k["role"] != "record"]}))
     print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
                                   for k in cases if k["role"] == "record"]}))

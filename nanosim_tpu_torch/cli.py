@@ -2,11 +2,13 @@
 `simulator.py`) argparse surface: the genome sub-command with the same flags,
 defaults and validation messages.  The PyTorch package runs it on the card.
 
-Ported so far: linear and circular DNA (`-dna_type circular`), KDE read
-lengths, FASTA/FASTQ with the error profile, homopolymer mode (`-hp -k`),
-chimeric reads (`--chimeric`), `--resume`.  The transcriptome and metagenome
-sub-commands, and the genome options not ported yet (--perfect, -med/-sd, -x,
-multi-host), say so and exit non-zero.
+Ported so far: the genome sub-command with linear and circular DNA
+(`-dna_type circular`), KDE read lengths, FASTA/FASTQ with the error profile,
+homopolymer mode (`-hp -k`), chimeric reads (`--chimeric`), perfect reads
+(`--perfect`) and `--resume`; the transcriptome sub-command (cDNA, direct RNA
+with `--uracil`, polyA tails, intron retention, `-hp -k`, `--perfect`,
+`--resume`).  The metagenome sub-command, and the options not ported yet
+(-med/-sd, -x, multi-host), say so and exit non-zero.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from textwrap import dedent
 
 from . import __version__
 
-NOT_PORTED_MODES = ("transcriptome", "metagenome")
+NOT_PORTED_MODES = ("metagenome",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,6 +69,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continue an interrupted run from its checkpoint")
     g.add_argument("--batch", type=int, default=256, help="device batch size")
 
+    t = sub.add_parser("transcriptome", help="Run the simulator on transcriptome mode")
+    t.add_argument("-rt", "--ref_t", required=True)
+    t.add_argument("-rg", "--ref_g", default="")
+    t.add_argument("-e", "--exp", required=True)
+    t.add_argument("-c", "--model_prefix", default="training")
+    t.add_argument("-o", "--output", default="simulated")
+    t.add_argument("-n", "--number", type=int, default=20000)
+    t.add_argument("-x", "--coverage", type=float, default=None)
+    t.add_argument("-max", "--max_len", type=float, default=float("inf"))
+    t.add_argument("-min", "--min_len", type=int, default=50)
+    t.add_argument("--seed", type=int, default=None)
+    t.add_argument("-hp", "--homopolymer", action="store_true", default=False)
+    t.add_argument("-k", "--KmerBias", type=int, default=None)
+    t.add_argument("-b", "--basecaller", choices=["albacore", "guppy"], default=None)
+    t.add_argument("-s", "--strandness", type=float, default=None)
+    t.add_argument("--no_model_ir", dest="model_ir", action="store_false", default=True)
+    t.add_argument("--perfect", action="store_true", default=False)
+    t.add_argument("--polya", default=None)
+    t.add_argument("--fastq", action="store_true", default=False)
+    t.add_argument("-t", "--num_threads", type=int, default=1)
+    t.add_argument("--num_hosts", type=int, default=1,
+                   help="shard the run over N cooperating host processes")
+    t.add_argument("--host_id", type=int, default=0,
+                   help="this process's rank in a multi-host run")
+    t.add_argument("--coordinator", default=None,
+                   help="coordinator address of a multi-host run (not ported yet)")
+    t.add_argument("--uracil", action="store_true", default=False)
+    t.add_argument("--resume", action="store_true", default=False,
+                   help="continue an interrupted run from its checkpoint")
+    t.add_argument("--batch", type=int, default=256)
+
     for mode in NOT_PORTED_MODES:
         sub.add_parser(mode, help=f"{mode} mode (not ported yet)")
 
@@ -109,6 +142,9 @@ def main(argv=None):
         os.makedirs(dir_name, exist_ok=True)
 
     _validate_common(args, parser)
+    if args.mode == "transcriptome":
+        _transcriptome(args, seed)
+        return
     median = args.median_len
     sd = args.sd_len
     if (median and not sd) or (sd and not median):
@@ -120,8 +156,8 @@ def main(argv=None):
     if args.perfect and args.chimeric:
         print("\nPerfect reads cannot be chimeric\n")
         sys.exit(1)
-    for flag, what in ((args.perfect, "--perfect"), (median is not None, "-med/-sd"),
-                       (args.coverage is not None, "-x"), (args.num_hosts > 1, "--num_hosts")):
+    for flag, what in ((median is not None, "-med/-sd"), (args.coverage is not None, "-x"),
+                       (args.num_hosts > 1, "--num_hosts")):
         if flag:
             _not_ported(what)
 
@@ -133,10 +169,49 @@ def main(argv=None):
         args.output,
         args.number,
         fastq=args.fastq,
+        perfect=args.perfect,
         chimeric=args.chimeric,
         kmer_bias=args.KmerBias if args.homopolymer else None,
         strandness=args.strandness,
         dna_type=args.dna_type,
+        min_len=args.min_len,
+        max_len=args.max_len,
+        seed=seed,
+        batch=args.batch,
+        resume=args.resume,
+    )
+
+
+def _transcriptome(args, seed: int):
+    if args.model_ir and args.ref_g == "":
+        sys.stderr.write(
+            "\nPlease provide a reference genome to simulate intron retention events!\n")
+        sys.exit(1)
+    if args.polya and args.basecaller is None:
+        print("\nPlease input basecaller to simulate polyA tails from.\n")
+        sys.exit(1)
+    for flag, what in ((args.coverage is not None, "-x"), (args.num_hosts > 1, "--num_hosts")):
+        if flag:
+            _not_ported(what)
+
+    from .sim.run_transcriptome import simulate_transcriptome
+
+    simulate_transcriptome(
+        args.ref_t,
+        args.ref_g,
+        args.exp,
+        args.model_prefix,
+        args.output,
+        args.number,
+        perfect=args.perfect,
+        fastq=args.fastq,
+        kmer_bias=args.KmerBias if args.homopolymer else None,
+        homopolymer=args.homopolymer,
+        strandness=args.strandness,
+        model_ir=args.model_ir,
+        polya=args.polya,
+        basecaller=args.basecaller,
+        uracil=args.uracil,
         min_len=args.min_len,
         max_len=args.max_len,
         seed=seed,

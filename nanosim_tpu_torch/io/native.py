@@ -53,10 +53,24 @@ def get_lib():
             for name in ("replay_walk_batch", "emit_batch_recon", "emit_batch_flat",
                          "replay_unaligned_walk_batch", "emit_batch_recon_unaligned",
                          "emit_batch_recon_hp", "emit_chimeric_recon",
-                         "emit_chimeric_batch"):
+                         "emit_chimeric_batch", "emit_batch", "emit_trx_recon"):
                 getattr(lib, name).restype = ctypes.c_int64
             _lib = lib
     return _lib
+
+
+class PerfectReplayer:
+    """Stand-in replayer for --perfect reads (simulator.py:1316-1345 `per`
+    branch): no error walk ran, so every accepted lane must carry zero
+    events (empty-prefix checksum 0).  `replay` verifies that and writes
+    nothing; the reconstruction spec then degenerates to extraction +
+    IUPAC resolution + strand."""
+
+    available = True
+
+    def replay(self, slots, lane_do, m_ref, n_events, checksums, ev_out,
+               ev_off, part_ids=None):
+        return (np.asarray(n_events) == 0) & (np.asarray(checksums) == 0)
 
 
 class WalkReplayer:
@@ -214,6 +228,109 @@ class NativeEmitter:
     @property
     def available(self) -> bool:
         return self.lib is not None
+
+    def emit(
+        self,
+        reads: np.ndarray,  # [B, L] uint8 (C-contiguous)
+        quals,  # [B, L] uint8 or None
+        lanes: np.ndarray,  # [k] int64 lane indices, emission order
+        names: list,  # k strings
+        total_len: np.ndarray,  # [k]
+        head: np.ndarray,  # [k]
+        l_new: np.ndarray,  # [k]
+        rev: np.ndarray,  # [k] bool
+        ev_pos2x,  # [B, E] int32 or None
+        ev_type,
+        ev_len,
+        n_events,  # [k] int64 (0 if no error log)
+        g_off: np.ndarray,  # [k] genome flat offset of the read's chromosome
+        g_len: np.ndarray,  # [k] chromosome length
+        g_circ: np.ndarray,  # [k] uint8
+        start_pos: np.ndarray,  # [k] local start position
+        genome_flat: np.ndarray,
+        fastq: bool,
+        write_errors: bool,
+    ):
+        k = len(lanes)
+        names_packed, packed_off, pos = self._pack_names(names)
+
+        need_fastx = int(total_len.sum()) * (2 if fastq else 1) + pos * 2 + 16 * k + 64
+        if self._fastx_buf.size < need_fastx:
+            self._fastx_buf = np.empty(int(need_fastx * 1.3), np.uint8)
+        max_total = int(total_len.max()) if k else 1
+        if self._mid_buf.size < max_total:
+            self._mid_buf = np.empty(max_total * 2, np.uint8)
+
+        if write_errors:
+            ev_len_np = ev_len
+            # generous bound: per event name+48 + 2*len
+            tot_ev_len = int(ev_len_np[lanes, :].sum()) if k else 0
+            max_name = max((len(nm) for nm in names), default=0)
+            need_err = int(n_events.sum()) * (max_name + 48) + 2 * tot_ev_len + 64
+        else:
+            need_err = 64
+        if self._err_buf.size < need_err:
+            self._err_buf = np.empty(int(need_err * 1.3), np.uint8)
+
+        fw = ctypes.c_int64(0)
+        ew = ctypes.c_int64(0)
+        B, L = reads.shape
+        if ev_pos2x is None:
+            ev_pos2x = np.zeros((B, 1), np.int32)
+            ev_type = np.zeros((B, 1), np.int32)
+            ev_len = np.zeros((B, 1), np.int32)
+        e_stride = ev_pos2x.shape[1]
+
+        args = [
+            _ptr(reads, ctypes.c_uint8),
+            ctypes.c_int64(L),
+            _ptr(quals if quals is not None else reads, ctypes.c_uint8),
+            ctypes.c_int64(k),
+            _ptr(np.ascontiguousarray(lanes, np.int64), ctypes.c_int64),
+            names_packed.ctypes.data_as(ctypes.c_char_p),
+            _ptr(packed_off, ctypes.c_int64),
+            _ptr(np.ascontiguousarray(total_len, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(head, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(l_new, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(rev, np.uint8), ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(ev_pos2x, np.int32), ctypes.c_int32),
+            _ptr(np.ascontiguousarray(ev_type, np.int32), ctypes.c_int32),
+            _ptr(np.ascontiguousarray(ev_len, np.int32), ctypes.c_int32),
+            ctypes.c_int64(e_stride),
+            _ptr(np.ascontiguousarray(n_events, np.int64), ctypes.c_int64),
+            _ptr(genome_flat, ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(g_off, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(g_len, np.int64), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(g_circ, np.uint8), ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(start_pos, np.int64), ctypes.c_int64),
+            _ptr(self._fastx_buf, ctypes.c_char),
+            ctypes.c_int64(self._fastx_buf.size),
+            ctypes.byref(fw),
+            _ptr(self._err_buf, ctypes.c_char),
+            ctypes.c_int64(self._err_buf.size),
+            ctypes.byref(ew),
+            ctypes.c_int32(1 if fastq else 0),
+            ctypes.c_int32(1 if write_errors else 0),
+            _ptr(self._mid_buf, ctypes.c_char),
+            ctypes.c_int64(self._mid_buf.size),
+        ]
+        rc = self.lib.emit_batch(*args)
+        if rc != 0:
+            # grow the overflowing buffer and retry once
+            if rc == 1:
+                self._fastx_buf = np.empty(self._fastx_buf.size * 2, np.uint8)
+            else:
+                self._err_buf = np.empty(self._err_buf.size * 2, np.uint8)
+                self._mid_buf = np.empty(self._mid_buf.size * 2, np.uint8)
+            return self.emit(
+                reads, quals, lanes, names, total_len, head, l_new, rev,
+                ev_pos2x, ev_type, ev_len, n_events, g_off, g_len, g_circ,
+                start_pos, genome_flat, fastq, write_errors,
+            )
+        return (
+            self._fastx_buf[: fw.value].tobytes(),
+            self._err_buf[: ew.value].tobytes(),
+        )
 
     def emit_flat(
         self,
@@ -753,6 +870,114 @@ class NativeEmitter:
         )
         if rc != 0:
             raise RuntimeError(f"emit_chimeric_recon failed rc={rc}")
+        return (
+            memoryview(self._fastx_buf)[: fw.value],
+            memoryview(self._err_buf)[: ew.value],
+        )
+
+    def emit_trx_recon(
+        self,
+        *,
+        seed: int,
+        stream: int,
+        ht_cap: int,
+        slots: np.ndarray,  # [k]
+        names: list,
+        total: np.ndarray,
+        head: np.ndarray,
+        tail: np.ndarray,
+        pa_len: np.ndarray,
+        l_new: np.ndarray,
+        middle_ref: np.ndarray,
+        rev: np.ndarray,
+        ev_flat: np.ndarray,  # u32 replayed walk events
+        ev_off: np.ndarray,
+        n_events: np.ndarray,
+        src_a: np.ndarray,  # transcriptome flat bytes
+        src_b: np.ndarray,  # IR interval-concat aux
+        use_b: np.ndarray,  # [k] uint8
+        src_off: np.ndarray,  # [k]
+        fastq: bool,
+        uracil: bool,
+        write_errors: bool,
+        qual_table=None,
+        n_threads: int = 0,
+    ):
+        """Reconstruct + format transcriptome reads (head | middle | polyA |
+        tail) from replayed event streams."""
+        from ..ops import rng as rng_mod
+
+        k = len(slots)
+        names_packed, name_off, _ = self._pack_names(names)
+        i64 = lambda a: np.ascontiguousarray(a, np.int64)
+
+        if fastq:
+            assert qual_table is not None
+            q_breaks = np.ascontiguousarray(qual_table[0], np.float32)
+            q_vals = np.ascontiguousarray(qual_table[1], np.int32)
+            qK = q_breaks.shape[1]
+        else:
+            q_breaks = np.zeros((5, 1), np.float32)
+            q_vals = np.zeros((5, 1), np.int32)
+            qK = 1
+
+        name_lens = np.diff(name_off)
+        ubf = np.zeros(k + 1, np.int64)
+        ubf[1:] = np.cumsum(name_lens + total * (2 if fastq else 1) + 16)
+        ube = np.zeros(k + 1, np.int64)
+        if write_errors:
+            lens_all = ((np.asarray(ev_flat) >> np.uint32(17)) & np.uint32(0x1FFF)).astype(np.int64)
+            csum = np.zeros(len(lens_all) + 1, np.int64)
+            np.cumsum(lens_all, out=csum[1:])
+            ev_len_sum = csum[np.asarray(ev_off) + np.asarray(n_events)] - csum[np.asarray(ev_off)]
+            ube[1:] = np.cumsum(np.asarray(n_events) * (name_lens + 52) + 2 * ev_len_sum)
+        if self._fastx_buf.size < ubf[k]:
+            self._fastx_buf = np.empty(int(ubf[k] * 1.3) + 64, np.uint8)
+        if self._err_buf.size < ube[k] + 64:
+            self._err_buf = np.empty(int(ube[k] * 1.3) + 64, np.uint8)
+        if n_threads <= 0:
+            n_threads = min(4, os.cpu_count() or 1)
+
+        fw = ctypes.c_int64(0)
+        ew = ctypes.c_int64(0)
+        rc = self.lib.emit_trx_recon(
+            ctypes.c_int64(seed), ctypes.c_int64(stream),
+            ctypes.c_int64(rng_mod.SITE_IUPAC), ctypes.c_int64(rng_mod.SITE_INS_BASE),
+            ctypes.c_int64(rng_mod.SITE_HEAD_TAIL), ctypes.c_int64(rng_mod.SITE_QUAL),
+            ctypes.c_int64(ht_cap), ctypes.c_int64(k),
+            _ptr(i64(slots), ctypes.c_int64),
+            names_packed.ctypes.data_as(ctypes.c_char_p),
+            _ptr(name_off, ctypes.c_int64),
+            _ptr(i64(total), ctypes.c_int64),
+            _ptr(i64(head), ctypes.c_int64),
+            _ptr(i64(tail), ctypes.c_int64),
+            _ptr(i64(pa_len), ctypes.c_int64),
+            _ptr(i64(l_new), ctypes.c_int64),
+            _ptr(i64(middle_ref), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(rev, np.uint8), ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(ev_flat, np.uint32), ctypes.c_uint32),
+            _ptr(i64(ev_off), ctypes.c_int64),
+            _ptr(i64(n_events), ctypes.c_int64),
+            _ptr(np.ascontiguousarray(src_a, np.uint8), ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(src_b, np.uint8), ctypes.c_uint8),
+            _ptr(np.ascontiguousarray(use_b, np.uint8), ctypes.c_uint8),
+            _ptr(i64(src_off), ctypes.c_int64),
+            _ptr(ubf, ctypes.c_int64),
+            _ptr(ube, ctypes.c_int64),
+            _ptr(self._fastx_buf, ctypes.c_char),
+            ctypes.byref(fw),
+            _ptr(self._err_buf, ctypes.c_char),
+            ctypes.byref(ew),
+            ctypes.c_int32(1 if fastq else 0),
+            ctypes.c_int32(1 if uracil else 0),
+            ctypes.c_int32(1 if write_errors else 0),
+            _ptr(q_breaks, ctypes.c_float),
+            _ptr(q_vals, ctypes.c_int32),
+            ctypes.c_int64(qK),
+            ctypes.c_int32(n_threads),
+        )
+        if rc != 0:
+            raise RuntimeError(f"emit_trx_recon failed rc={rc}")
         return (
             memoryview(self._fastx_buf)[: fw.value],
             memoryview(self._err_buf)[: ew.value],

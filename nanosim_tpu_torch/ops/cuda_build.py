@@ -14,6 +14,8 @@ import re
 import shutil
 import subprocess
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -109,3 +111,18 @@ class KernelLibrary:
         self.bind(lib)
         self._lib = lib
         return lib
+
+
+def time_ms(fn, n: int) -> float:
+    """ms per call of fn on the card: CUDA events around n calls after a
+    warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n

@@ -189,13 +189,20 @@ def uniform2_per_slot(slot_keys_arr: torch.Tensor, site: int, shape=()):
     return lo, hi
 
 
-def uniform_f64(keys: torch.Tensor) -> torch.Tensor:
-    """jax.random.uniform(k, dtype=float64) per key: [B, 2] -> [B] f64.
+def uniform_f64(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """jax.random.uniform(k, shape, dtype=float64) per key: [B, 2] ->
+    [B, *shape] f64.
 
-    The 64 random bits are (y0 << 32) | y1 of counter (0, 0); their top 52
-    bits become the mantissa.  (y0 << 20) | (y1 >> 12) is that shift done
-    without leaving int64's positive range."""
-    zero = torch.zeros_like(keys[:, 0])
-    y0, y1 = _threefry2x32(keys[:, 0], keys[:, 1], zero, zero)
+    The 64 random bits of draw j are (y0 << 32) | y1 of counter (0, j);
+    their top 52 bits become the mantissa.  (y0 << 20) | (y1 >> 12) is that
+    shift done without leaving int64's positive range."""
+    if shape:
+        pos = _flat_positions(keys, tuple(shape))
+        extra = (1,) * len(shape)
+        k0 = keys[:, 0].reshape(-1, *extra)
+        k1 = keys[:, 1].reshape(-1, *extra)
+    else:
+        pos, k0, k1 = torch.zeros_like(keys[:, 0]), keys[:, 0], keys[:, 1]
+    y0, y1 = _threefry2x32(k0, k1, torch.zeros_like(pos), pos)
     mant = (y0 << 20) | (y1 >> 12)
     return (mant | 0x3FF0000000000000).view(torch.float64) - 1.0

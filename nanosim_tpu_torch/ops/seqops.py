@@ -58,6 +58,12 @@ def complement(seq: torch.Tensor) -> torch.Tensor:
 _CHOICE_ASCII = torch.tensor(list(b"ATCG"), dtype=torch.uint8)
 
 
+def to_uracil(seq: torch.Tensor) -> torch.Tensor:
+    """T -> U and t -> u (direct RNA reads); every other byte unchanged."""
+    out = torch.where(seq == ord("T"), ord("U"), seq)
+    return torch.where(seq == ord("t"), ord("u"), out).to(torch.uint8)
+
+
 def random_bases(u: torch.Tensor) -> torch.Tensor:
     """uniforms -> ASCII bases, uniform over A/T/C/G (np.random.choice order)."""
     idx = torch.floor(u * 4.0).to(torch.int32).clamp_max(3)

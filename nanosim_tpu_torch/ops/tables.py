@@ -201,6 +201,22 @@ class KdeDevice:
             out = xla_math.pow10_f32(out) - 1.0
         return out[:, 0] if out.shape[1] == 1 else out
 
+    def sample_nearest_pool(self, cond_value, comp_u, z0, z1) -> torch.Tensor:
+        """Reference-parity aligned-length draw (select_nearest_kde2d,
+        simulator.py:108-111): draw a pool of K joint 2D KDE samples per lane
+        and return dim-1 of the sample whose dim-0 is nearest cond_value (the
+        first such sample on a tie, as argmin takes it).
+
+        comp_u/z0/z1: [B, K] uniforms and standard normals.
+        """
+        n = self.data.shape[0]
+        i = (comp_u * n).to(torch.int32).clamp_max(n - 1).long()
+        bw = self.bandwidth.expand_as(z0)
+        s0 = xla_math.fma32(bw, z0, self.data[i, 0])
+        s1 = xla_math.fma32(bw, z1, self.data[i, 1])
+        idx = torch.argmin((s0 - cond_value[:, None]).abs(), dim=1)
+        return s1.gather(1, idx[:, None])[:, 0]
+
 
 def build_qual_breakpoints(params: dict, classes) -> tuple:
     """Disk-cached wrapper around :func:`_build_qual_breakpoints_compute`

@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from . import rng, walk_cuda
-from .cuda_build import KernelLibrary
+from .cuda_build import KernelLibrary, time_ms
 from .walk_cuda import MASK32, _as_u32_words, _check_cuda, _ptr
 
 M_REF = 10**8  # far beyond any step count: every lane stays active
@@ -218,19 +218,6 @@ def experiment_keys(device, n_lanes: int = N_LANES, seed: int = EXPERIMENT_SEED)
     return rng.site_keys(sk, rng.SITE_WALK)
 
 
-def _time_ms(fn, n: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
 def measure_step_costs(tables, device="cuda", n_lanes: int = N_LANES,
                        ablation_steps: int = ABLATION_STEPS,
                        row_select_steps: int = ROW_SELECT_STEPS, launches: int = 5) -> dict:
@@ -249,7 +236,7 @@ def measure_step_costs(tables, device="cuda", n_lanes: int = N_LANES,
             ("ablation", walk_ablation, ABLATION_VARIANTS, ablation_steps),
             ("row_select", walk_row_select, ROW_SELECT_VARIANTS, row_select_steps)):
         for v in variants:
-            ms = _time_ms(lambda: fn(v, wk, *t, steps), launches)
+            ms = time_ms(lambda: fn(v, wk, *t, steps), launches)
             out[name][v] = {"steps": steps, "ms": ms,
                             "ns_per_lane_step": ms * 1e6 / (steps * n_lanes)}
     a = out["ablation"]

@@ -172,3 +172,82 @@ def make_reference_fasta(
             f.write(f">{name_prefix}{ci + 1}\n")
             for i in range(0, ln, line_width):
                 f.write(s[i : i + line_width] + "\n")
+
+
+def make_transcript_reference(
+    path: str,
+    n_transcripts: int = 20,
+    mean_len: int = 1500,
+    seed: int = 2,
+) -> list:
+    """Random transcriptome FASTA; returns [(name, length)]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    with open(path, "w") as f:
+        for i in range(n_transcripts):
+            ln = max(200, int(rng.normal(mean_len, mean_len / 3)))
+            seq = BASES[rng.integers(0, 4, ln)].tobytes().decode()
+            name = f"ENST{i:08d}"
+            f.write(f">{name}\n{seq}\n")
+            out.append((name, ln))
+    return out
+
+
+def make_expression_tsv(path: str, transcripts, seed: int = 3) -> None:
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        f.write("target_id\test_counts\ttpm\n")
+        for name, _ in transcripts:
+            tpm = float(rng.gamma(0.8, 60.0))
+            f.write(f"{name}\t{tpm * 2:.2f}\t{tpm:.4f}\n")
+
+
+def make_ir_fixture(dirpath: str, n_transcripts: int = 12, seed: int = 4):
+    """Genome + transcripts-with-introns + GFF3 structure fixture.
+
+    Each transcript is the concatenation of 2-4 exon slices of a random
+    genome, with introns between them; the GFF (written as
+    `<dir>/training_added_intron_final.gff3`) carries transcript_id
+    attributes like the GenomeTools pipeline output.
+
+    Returns (genome_fa, trx_fa, gff_path, [(name, spliced_len)]).
+    """
+    rng = np.random.default_rng(seed)
+    os.makedirs(dirpath, exist_ok=True)
+    genome_fa = os.path.join(dirpath, "genome.fa")
+    glen = 120000
+    make_reference_fasta(genome_fa, [glen], seed=seed + 1)
+    from ..io.genome import PackedGenome
+
+    g = PackedGenome.from_fasta(genome_fa)
+
+    trx_fa = os.path.join(dirpath, "transcripts.fa")
+    gff = os.path.join(dirpath, "training_added_intron_final.gff3")
+    out = []
+    cursor = 100
+    with open(trx_fa, "w") as tf, open(gff, "w") as gf:
+        gf.write("##gff-version 3\n")
+        for i in range(n_transcripts):
+            name = f"ENSTIR{i:06d}"
+            n_exon = int(rng.integers(2, 5))
+            feats = []
+            pos = cursor
+            for e in range(n_exon):
+                elen = int(rng.integers(300, 900))
+                feats.append(("exon", pos, pos + elen))
+                pos += elen
+                if e < n_exon - 1:
+                    ilen = int(rng.integers(80, 400))
+                    feats.append(("intron", pos, pos + ilen))
+                    pos += ilen
+            cursor = pos + int(rng.integers(200, 500))
+            seq = b"".join(
+                g.flat[s:e].tobytes() for t, s, e in feats if t == "exon"
+            ).decode()
+            tf.write(f">{name}\n{seq}\n")
+            for t, s, e in feats:
+                gf.write(
+                    f"chr1\tfix\t{t}\t{s + 1}\t{e}\t.\t+\t.\ttranscript_id={name}\n"
+                )
+            out.append((name, len(seq)))
+    return genome_fa, trx_fa, gff, out

@@ -6,7 +6,9 @@ used prefixes:
   meta   -> (B+1) rows x META_COLS int64 little-endian; the last row holds
             the needed chunk counts;
   reads  -> (read-emitting programs) 2-bit codes, 4 bases/byte, each lane
-            starting at a 256-byte aligned offset;
+            starting at a 256-byte aligned offset; or raw bytes, one per
+            base (pack_reads=False: direct RNA reads carry 'U', which has
+            no 2-bit code);
   events -> (only when asked for: the checksum fallback) one u32 per walk
             event (pos2x | len << 17 | type << 30), each lane starting at a
             64-word (256-byte) aligned offset;
@@ -117,11 +119,12 @@ def compact_pack(
     nq_cap: int = 1,  # qual capacity, CHUNK-byte chunks
     prehp=None,  # [B, l_cap] uint8 ASCII pass-1 middle (homopolymer mode)
     np_cap: int = 1,  # prehp capacity, CHUNK-byte chunks
+    pack_reads: bool = True,  # False: the reads travel as raw bytes
 ) -> torch.Tensor:
     """ONE uint8 transfer buffer: [ meta (B+1 rows x META_COLS i64 LE, one more
-    column with prehp; last row = needed chunk counts) | flat 2-bit reads
-    (read given) | flat events (with_events) | flat quals (quals given) | flat
-    2-bit pre-resize middles (prehp given) ]."""
+    column with prehp; last row = needed chunk counts) | flat reads, 2-bit or
+    raw (read given) | flat events (with_events) | flat quals (quals given) |
+    flat 2-bit pre-resize middles (prehp given) ]."""
     B = valid.shape[0]
     dev = valid.device
     v64 = valid.long()
@@ -131,11 +134,16 @@ def compact_pack(
     need_q = torch.zeros((), dtype=torch.int64, device=dev)
     need_p = torch.zeros((), dtype=torch.int64, device=dev)
     if read is not None:
-        packed = _pack_codes4(read)
+        if pack_reads:
+            packed = _pack_codes4(read)
+            lane_bytes = v64 * ((total.long() + 3) // 4)
+        else:
+            packed = read
+            lane_bytes = v64 * total.long()
         padw = (-packed.shape[1]) % CHUNK
         if padw:
             packed = torch.nn.functional.pad(packed, (0, padw))
-        flat_r, need_r = _chunk_compact(packed, v64 * ((total.long() + 3) // 4), nr_cap)
+        flat_r, need_r = _chunk_compact(packed, lane_bytes, nr_cap)
         parts.append(flat_r)
     if with_events:
         evb = _u32_le_bytes(event_words(ev_pos2x, ev_type, ev_len))  # [B, 4E]
@@ -302,7 +310,10 @@ def _decode_2bit(flat: np.ndarray, off: int, n: int) -> np.ndarray:
 
 
 def decode_reads_ascii(cb: CompactBatch, lanes) -> list:
-    """Decode selected lanes back to ASCII arrays (tests and checks)."""
+    """Decode selected lanes back to ASCII arrays (2-bit or raw reads)."""
+    if not cb.pack_reads:
+        return [cb.reads_flat[int(cb.read_off[b]) : int(cb.read_off[b]) + int(cb.total[b])]
+                for b in lanes]
     return [_decode_2bit(cb.reads_flat, int(cb.read_off[b]), int(cb.total[b])) for b in lanes]
 
 

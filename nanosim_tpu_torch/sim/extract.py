@@ -103,6 +103,48 @@ def sample_genome_positions(
     return chrom, local, ok
 
 
+def sample_transcript_positions(
+    slot_keys: torch.Tensor,  # [B, 2]
+    trx_idx: torch.Tensor,  # [B] int32 transcript per lane
+    lengths: torch.Tensor,  # [B] int32
+    genome: GenomeDevice,
+    site: int = rng.SITE_POSITION,
+):
+    """extract_read_trx (simulator.py:1683-1691): uniform start in
+    [0, seq_len - length], inclusive.  Returns (local_pos [B] i64, ok)."""
+    u = rng.uniform_f64(rng.site_keys(slot_keys, site))
+    span = genome.lengths[trx_idx.long()] - lengths.to(torch.int64)
+    ok = span >= 0
+    span0 = span.clamp_min(0)
+    pos = torch.minimum((u * (span0 + 1)).to(torch.int64), span0)
+    return pos, ok
+
+
+def sample_uniform_chrom_positions(
+    slot_keys: torch.Tensor,  # [B, 2]
+    lengths: torch.Tensor,  # [B] int32
+    genome: GenomeDevice,
+    site: int = rng.SITE_POSITION,
+):
+    """Uniform random chromosome/transcript among those STRICTLY longer than
+    the read (extract_read transcriptome branch, simulator.py:1695-1703),
+    then uniform start in [0, len - length] inclusive.
+
+    Returns (chrom [B] i32, pos [B] i64, ok [B] bool)."""
+    us = rng.uniform_f64(rng.site_keys(slot_keys, site), (2,))
+    eligible = lengths.to(torch.int64)[:, None] < genome.lengths[None, :]  # [B, C]
+    n_eli = eligible.sum(dim=1)
+    kth = torch.minimum((us[:, 0] * n_eli).to(torch.int32), (n_eli - 1).clamp_min(0))
+    cum = torch.cumsum(eligible, dim=1, dtype=torch.int32)
+    # the first transcript whose running count passes kth (0 when none is
+    # eligible, as argmax over all-false gives)
+    chrom = (cum > kth[:, None]).to(torch.uint8).argmax(dim=1).to(torch.int32)
+    ok = n_eli > 0
+    span = genome.lengths[chrom.long()] - lengths.to(torch.int64)
+    pos = torch.minimum((us[:, 1] * (span + 1)).to(torch.int64), span.clamp_min(0))
+    return chrom, pos, ok
+
+
 def gather_segments_padded(genome: GenomeDevice, chrom: torch.Tensor, local_pos: torch.Tensor,
                            l_cap: int):
     """Chunked linear extraction: returns (ref_padded [B, l_cap + CHUNK]

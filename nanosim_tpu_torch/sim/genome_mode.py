@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import functools
 import os
+import types
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -209,6 +210,7 @@ def genome_batch(
     emit_reads: bool = True,
     kmer_bias: Optional[int] = None,
     hp_r_max: int = 256,
+    perfect: bool = False,
 ) -> BatchOut:
     """The aligned-read batch program (KDE lengths): the read-emitting
     program, or with emit_reads=False the meta-only one.
@@ -222,29 +224,48 @@ def genome_batch(
     resizing (at most hp_r_max runs per lane) -> assembly; the meta-only
     program is unchanged but for the final length filter, which homopolymer
     mode does not apply.
+
+    perfect (`--perfect`): the length draw is the whole read's (the profile's
+    aligned-reads KDE), no head or tail, no walk: zero events, so the read is
+    the extracted reference, strand-flipped.  Its read-emitting program is
+    the fused read's (K3), with `-hp` the per-byte extraction and the
+    assembly (K5); no run is resized.
     """
     sk = rng.slot_keys(base_key, slots)
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device=slots.device)
 
     # --- aligned-region length (simulator.py:1284-1296) ---
     ref_len_f = _kde_draw(sk, rng.SITE_REF_LENGTH, tables.kde_aligned, 1)[:, 0]
-    remainder, head, tail, ht_ok = draw_ht(sk, tables, ht_cap)
-    valid = (ht_ok & (ref_len_f > 0) & (ref_len_f <= f32(max_len))
-             & (ref_len_f <= f32(l_cap)))
-    m_ref = ref_len_f.to(torch.int32).clamp(0, l_cap)
+    if perfect:
+        valid = (ref_len_f >= f32(min_len)) & (ref_len_f <= f32(max_len))
+        m_ref = ref_len_f.to(torch.int32).clamp(0, l_cap)
+        middle_ref = l_new = m_ref
+        zero = torch.zeros_like(m_ref)
+        head = tail = zero
+        ev = torch.zeros((slots.shape[0], 1), dtype=torch.int32, device=slots.device)
+        # the program's view of a walk that took no step
+        walk = types.SimpleNamespace(events_pos2x=ev, events_type=ev, events_len=ev,
+                                     events_valid=ev.bool(), n_events=zero)
+        cap_over = ref_len_f > f32(l_cap)
+        valid &= ~cap_over
+    else:
+        remainder, head, tail, ht_ok = draw_ht(sk, tables, ht_cap)
+        valid = (ht_ok & (ref_len_f > 0) & (ref_len_f <= f32(max_len))
+                 & (ref_len_f <= f32(l_cap)))
+        m_ref = ref_len_f.to(torch.int32).clamp(0, l_cap)
 
-    walk = error_walk.error_walk(
-        sk, m_ref, tables.first_match, tables.match_markov, tables.mixtures, tables.trans, e_max
-    )
-    middle_ref, l_new = walk.middle_ref, walk.l_new
-    # ht_cap is bucket-independent, so remainder > ht_cap stays a plain
-    # rejection (inside ht_ok)
-    cap_over = (walk.overflow | (middle_ref > l_cap) | (l_new > l_cap)
-                | (ref_len_f > f32(l_cap)))
-    total0 = remainder + l_new
-    cap_over |= (total0 > l_out) & (total0.double() <= max_len)
-    valid &= ~cap_over
-    valid &= (total0 >= min_len) & (total0.double() <= max_len)
+        walk = error_walk.error_walk(
+            sk, m_ref, tables.first_match, tables.match_markov, tables.mixtures, tables.trans,
+            e_max)
+        middle_ref, l_new = walk.middle_ref, walk.l_new
+        # ht_cap is bucket-independent, so remainder > ht_cap stays a plain
+        # rejection (inside ht_ok)
+        cap_over = (walk.overflow | (middle_ref > l_cap) | (l_new > l_cap)
+                    | (ref_len_f > f32(l_cap)))
+        total0 = remainder + l_new
+        cap_over |= (total0 > l_out) & (total0.double() <= max_len)
+        valid &= ~cap_over
+        valid &= (total0 >= min_len) & (total0.double() <= max_len)
 
     # --- extraction (simulator.py:1694-1781) ---
     chrom, local_pos, pos_ok = extract.sample_genome_positions(
@@ -265,6 +286,16 @@ def genome_batch(
         total = head + l_new + tail
         # -hp: suppression and resizing happen host-side on the
         # reconstruction route
+    elif kmer_bias is not None and perfect:
+        # -hp --perfect: the perfect middle is the extraction itself (no
+        # suppression, no resizing), assembled like the -hp read
+        ref_seg = extract.gather_segments(genome, chrom, local_pos, middle_ref, l_cap)
+        u_iupac, _ = rng.uniform2_per_slot(sk, rng.SITE_IUPAC, (l_cap,))
+        ref_seg = seqops.resolve_iupac(ref_seg, u_iupac)
+        read_prehp = ref_seg
+        read, quals, total, _ = assemble_read(
+            ref_seg, torch.zeros_like(ref_seg, dtype=torch.int32), l_new, head, tail, sk,
+            tables, l_out, ht_cap, fastq)
     elif kmer_bias is not None:
         # the hp run analysis needs the aligned per-byte extraction
         ref_seg = extract.gather_segments(genome, chrom, local_pos, middle_ref, l_cap)
@@ -517,8 +548,9 @@ class GenomeSimulator:
     Covers KDE lengths with FASTA or FASTQ and the error profile: linear DNA
     on the host-reconstruction route, and the read-emitting program for
     circular DNA (a single chromosome) and for NANOSIM_TPU_RECON=0; with
-    kmer_bias (homopolymer mode, `-hp -k`) on both routes.  --perfect and the
-    median/sd lognormal lengths are not ported yet."""
+    kmer_bias (homopolymer mode, `-hp -k`) and with perfect (`--perfect`,
+    also with `-hp`) on both routes.  The median/sd lognormal lengths are not
+    ported yet."""
 
     def __init__(
         self,
@@ -531,11 +563,12 @@ class GenomeSimulator:
         max_len: float = float("inf"),
         batch: int = 256,
         kmer_bias: Optional[int] = None,
+        perfect: bool = False,
         device="cuda",
     ):
         if fastq and profile.base_quals is None:
             raise ValueError("fastq=True needs a profile loaded with fastq=True")
-        if kmer_bias is not None and profile.hp_params is None:
+        if kmer_bias is not None and not perfect and profile.hp_params is None:
             raise ValueError("kmer_bias needs a profile loaded with homopolymer=True")
         check_circular(genome, circular_dna)
         self.device = device_of(device)
@@ -548,6 +581,7 @@ class GenomeSimulator:
         self.circular_dna = circular_dna
         self.batch = batch
         self.kmer_bias = kmer_bias
+        self.perfect = perfect
 
         self.l_cap = plan_ref_capacity(profile, max_len, genome.max_chrom)
         self.ht_cap = plan_ht_capacity(profile)
@@ -577,7 +611,7 @@ class GenomeSimulator:
             l_cap=self.l_cap, l_out=self.l_out, ht_cap=self.ht_cap, e_max=e_max,
             min_len=self.min_len, max_len=self.max_len, fastq=self.fastq,
             circular_dna=self.circular_dna, emit_reads=emit_reads,
-            kmer_bias=self.kmer_bias, hp_r_max=hp_r_max,
+            kmer_bias=self.kmer_bias, hp_r_max=hp_r_max, perfect=self.perfect,
         )
 
     def run(self, n_reads: int, writer, seed: int = 0, max_batches: Optional[int] = None,
@@ -593,7 +627,7 @@ class GenomeSimulator:
         resume_state: path to a (slot cursor, accepted) checkpoint file; if
         it exists the run continues from it (callers must open the output
         files in append mode), and it is updated after every batch."""
-        from ..io.native import WalkReplayer
+        from ..io.native import PerfectReplayer, WalkReplayer
         from .output import CompactFetcher
 
         recon = want_recon(self.circular_dna)
@@ -603,13 +637,14 @@ class GenomeSimulator:
         # the replayed walk gives the host the events: on the recon route
         # for the read bytes, on the read-emitting route for the error log
         # (but for homopolymer mode, whose log needs the device's own
-        # suppression-zeroed events)
-        replayer = WalkReplayer(
+        # suppression-zeroed events); no walk ran for perfect reads, whose
+        # stand-in replayer checks that every lane carries zero events
+        replayer = PerfectReplayer() if self.perfect else WalkReplayer(
             self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_WALK,
             e_guard=plan_event_budget(self.profile, self.l_cap, slack=FULL_EVENT_SLACK),
         )
 
-        hp = self.kmer_bias is not None
+        hp = self.kmer_bias is not None and not self.perfect
 
         def make_fetcher(lazy_replay=False):
             return CompactFetcher(self.batch, est_events, replayer,

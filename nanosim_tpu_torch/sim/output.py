@@ -205,11 +205,13 @@ class GenomeBatchWriter:
     they arrive 2-bit packed, and the emitter decodes and formats them.
     In homopolymer mode the reconstruction is the -hp emitter's, and the
     device-materialized route's ground-truth log is composed here from the
-    pre-resize middles."""
+    pre-resize middles.  Perfect reads (`perfect`) are named `_perfect_` and
+    log no events."""
 
-    def __init__(self, fastx: FastxWriter, error_log=None):
+    def __init__(self, fastx: FastxWriter, error_log=None, perfect: bool = False):
         self.fastx = fastx
         self.error_log = error_log
+        self.perfect = perfect
         from ..io.native import NativeEmitter
 
         self._emitter = NativeEmitter()
@@ -225,7 +227,7 @@ class GenomeBatchWriter:
         if len(lanes) == 0:
             return 0
         return self._write_flat(sim, cb, lanes, accepted_so_far,
-                                with_events=self.error_log is not None)
+                                with_events=self.error_log is not None and not self.perfect)
 
     def _lane_names(self, sim, cb, lanes, accepted_so_far: int):
         names = []
@@ -236,11 +238,12 @@ class GenomeBatchWriter:
         head = cb.head
         middle_ref = cb.middle_ref
         tail = cb.tail
+        kind = "perfect" if self.perfect else "aligned"
         for rank, b in enumerate(lanes):
             idx = accepted_so_far + rank
             strand = "R" if rev[b] else "F"
             names.append(
-                f"{gnames[chrom[b]]}_{pos[b]}_aligned_{idx}_{strand}"
+                f"{gnames[chrom[b]]}_{pos[b]}_{kind}_{idx}_{strand}"
                 f"_{head[b]}_{middle_ref[b]}_{tail[b]}"
             )
         return names
@@ -256,7 +259,8 @@ class GenomeBatchWriter:
         names = self._lane_names(sim, cb, lanes, accepted_so_far)
         lanes = np.asarray(lanes, np.int64)
         chrom = cb.chrom[lanes]
-        hp = getattr(sim, "kmer_bias", None) is not None
+        # a perfect read is never resized: its -hp program is the plain one's
+        hp = getattr(sim, "kmer_bias", None) is not None and not self.perfect
         kw = {}
         if sim.fastq and cb.reads_flat is None:
             q = sim.tables.qual
@@ -364,6 +368,9 @@ class CompactFetcher:
     replayer, no events reach the host (the unaligned pass writes no error
     log).
 
+    With pack_reads=False the reads travel as raw bytes, one per base (direct
+    RNA reads: 'U' has no 2-bit code).
+
     With with_prehp (homopolymer mode off the reconstruction route) the
     buffer also carries the device's own events, whose lengths the
     suppression zeroed, and the 2-bit pre-resize middles the ground-truth
@@ -387,7 +394,7 @@ class CompactFetcher:
 
     def __init__(self, batch: int, est_events: float, replayer, recon_info=None,
                  lazy_replay: bool = False, with_reads: bool = False, fastq: bool = False,
-                 est_bases: float = 0.0, with_prehp: bool = False):
+                 est_bases: float = 0.0, with_prehp: bool = False, pack_reads: bool = True):
         from . import compact as _c
 
         if replayer is not None and not replayer.available:
@@ -398,6 +405,7 @@ class CompactFetcher:
             raise ValueError("the pre-resize middles travel with the reads and the device's "
                              "own events, without a replayer")
         self.with_prehp = with_prehp
+        self.pack_reads = pack_reads
         self._c = _c
         self.replayer = replayer
         self.recon_info = recon_info
@@ -411,7 +419,8 @@ class CompactFetcher:
         self.lazy_replay = lazy_replay
         self._locked = not with_reads  # meta-only buffers have nothing to size
         ch = _c.CHUNK
-        self.nr_cap = (self._tier(int(batch * (est_bases / 4.0 / ch + 1) * self.FIRST_MARGIN))
+        per_byte = 4.0 if pack_reads else 1.0
+        self.nr_cap = (self._tier(int(batch * (est_bases / per_byte / ch + 1) * self.FIRST_MARGIN))
                        if with_reads else 1)
         self.nq_cap = (self._tier(int(batch * (est_bases / ch + 1) * self.FIRST_MARGIN))
                        if self.transfer_quals else 1)
@@ -438,6 +447,7 @@ class CompactFetcher:
             quals=out.quals if self.transfer_quals else None,
             nr_cap=caps[0], nq_cap=caps[2],
             prehp=out.read_prehp if self.with_prehp else None, np_cap=caps[3],
+            pack_reads=self.pack_reads,
         )
         return buf, caps
 
@@ -449,7 +459,7 @@ class CompactFetcher:
         return self._c.decode_compact(
             buf_dev.cpu().numpy(), B, caps[0], caps[1], caps[2], fastq=self.transfer_quals,
             with_events=with_events or self.with_prehp, with_reads=self.with_reads,
-            np_cap=caps[3])
+            np_cap=caps[3], pack_reads=self.pack_reads)
 
     def _fetch(self, h: CompactHandle):
         B = h.out.valid.shape[0]

@@ -27,6 +27,7 @@ def simulate_genome(
     number: int = 20000,
     *,
     fastq: bool = False,
+    perfect: bool = False,
     chimeric: bool = False,
     kmer_bias: Optional[int] = None,
     strandness: Optional[float] = None,
@@ -43,18 +44,22 @@ def simulate_genome(
     DNA (circular: one chromosome); kmer_bias switches the aligned pass to
     homopolymer mode (`-hp -k`); chimeric draws a segment count per aligned
     read and joins the segments with gap sequences (`--chimeric`; such a run
-    cannot be resumed).  Returns counters for reporting.  Runs on the card
-    unless `device` says otherwise."""
+    cannot be resumed); perfect reads (`--perfect`) carry no error, no head
+    or tail, and have no unaligned pass.  Returns counters for reporting.
+    Runs on the card unless `device` says otherwise."""
+    if perfect and chimeric:
+        raise ValueError("Perfect reads cannot be chimeric")
     _log("Read in reference")
     genome = PackedGenome.from_fasta(ref_g, dna_type=dna_type)
     if dna_type == "circular" and genome.n_chrom > 1:
         raise ValueError("Do not choose circular if there is more than one chromosome in the genome!")
 
     _log("Read profile")
-    prof = profile_mod.load_profile(model_prefix, mode="genome", fastq=fastq, chimeric=chimeric,
-                                    homopolymer=kmer_bias is not None, strandness=strandness)
+    prof = profile_mod.load_profile(model_prefix, mode="genome", perfect=perfect, fastq=fastq,
+                                    chimeric=chimeric, homopolymer=kmer_bias is not None,
+                                    strandness=strandness)
     n_aligned, n_unaligned = profile_mod.split_aligned_unaligned(
-        [number], prof.aligned_rate, False
+        [number], prof.aligned_rate, perfect
     )
     n_aligned, n_unaligned = n_aligned[0], n_unaligned[0]
 
@@ -70,7 +75,8 @@ def simulate_genome(
                                       kmer_bias=kmer_bias, device=device)
     else:
         sim = GenomeSimulator(genome, prof, fastq=fastq, circular_dna=circular, min_len=min_len,
-                              max_len=max_len, batch=batch, kmer_bias=kmer_bias, device=device)
+                              max_len=max_len, batch=batch, kmer_bias=kmer_bias,
+                              perfect=perfect, device=device)
     state_path = out + "_aligned.resume.json"
     resuming = resume and os.path.exists(state_path)
     fw = output.FastxWriter(out + "_aligned_reads" + ext, fastq, append=resuming)
@@ -78,12 +84,12 @@ def simulate_genome(
     if chimeric:
         sim.run(n_aligned, output.ChimericBatchWriter(fw, el), seed=seed)
     else:
-        writer = output.GenomeBatchWriter(fw, el)
+        writer = output.GenomeBatchWriter(fw, el, perfect=perfect)
         sim.run(n_aligned, writer, seed=seed, resume_state=state_path if resume else None)
     fw.close()
     el.close()
 
-    if n_unaligned > 0:
+    if not perfect and n_unaligned > 0:
         _log("Start simulation of random reads")
         usim = UnalignedSimulator(genome, prof, fastq=fastq, circular_dna=circular,
                                   min_len=min_len, max_len=max_len, batch=batch, device=device)
@@ -93,4 +99,4 @@ def simulate_genome(
 
     output.RUN_STATS.report(_log)
     _log("Finished!")
-    return {"aligned": n_aligned, "unaligned": n_unaligned}
+    return {"aligned": n_aligned, "unaligned": 0 if perfect else n_unaligned}

@@ -9,6 +9,11 @@ with 0 head/tail and middle_ref as the middle length.  On linear DNA the
 device runs the meta-only program and the host replays the step stream and
 reconstructs the bytes (reconstruct_unaligned_lane is the spec); circular
 DNA and NANOSIM_TPU_RECON=0 run the read-emitting program.
+
+In transcriptome mode the read comes from a uniform transcript among those
+longer than it; direct RNA reads (`uracil`) carry 'U' for 'T', which the host
+reconstruction does not write, so that pass runs the read-emitting program
+and moves the reads as raw bytes.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ def unaligned_batch(
     fastq: bool = False,
     circular_dna: bool = False,
     emit_reads: bool = True,
+    uracil: bool = False,
+    transcriptome_mode: bool = False,
 ) -> BatchOut:
     """The unaligned-read batch program (KDE lengths): the read-emitting
     program, or with emit_reads=False the meta-only one."""
@@ -56,8 +63,14 @@ def unaligned_batch(
     # length filter on middle_ref (simulator.py:1503-1504)
     valid &= ~cap_over & (middle_ref >= min_len) & (middle_ref.double() <= max_len)
 
-    chrom, local_pos, pos_ok = extract.sample_genome_positions(
-        sk, middle_ref, genome, circular_dna)
+    if transcriptome_mode:
+        # extract_read transcriptome branch: uniform transcript among those
+        # strictly longer than the read (simulator.py:1695-1703)
+        chrom, local_pos, pos_ok = extract.sample_uniform_chrom_positions(
+            sk, middle_ref, genome)
+    else:
+        chrom, local_pos, pos_ok = extract.sample_genome_positions(
+            sk, middle_ref, genome, circular_dna)
     valid &= pos_ok
     u_strand = rng.uniform_per_slot(sk, rng.SITE_STRAND)
     is_rev = u_strand > tables.strandness_rate
@@ -85,6 +98,8 @@ def unaligned_batch(
         read = apply_errors.materialize_read(gm.src, gm.qclass, gm.valid, ref_seg, u_mis,
                                              u_ins, under_ins=under_ins)
         read = torch.where(is_rev[:, None], seqops.reverse_complement(read, l_new), read)
+        if uracil:
+            read = torch.where(read != 0, seqops.to_uracil(read), read)
         quals = torch.zeros_like(read)
         if fastq:
             u_q = rng.uniform_per_slot(sk, rng.SITE_QUAL, (l_cap,))
@@ -141,6 +156,17 @@ class UnalignedBatchWriter:
             self._emitter = NativeEmitter()
         lanes = np.asarray(lanes, np.int64)
         chrom = cb.chrom[lanes]
+        if cb.reads_flat is not None and not cb.pack_reads:
+            # raw-byte reads (direct RNA): the Python writer, as the JAX
+            # package writes them
+            for name, b in zip(names, lanes):
+                o, n = int(cb.read_off[b]), int(cb.total[b])
+                q = None
+                if sim.fastq:
+                    qo = int(cb.qual_off[b])
+                    q = cb.quals_flat[qo : qo + n]
+                self.fastx.write(name, cb.reads_flat[o : o + n], q)
+            return len(lanes)
         if cb.reads_flat is None:
             qt = None
             if sim.fastq:
@@ -172,6 +198,8 @@ class UnalignedSimulator:
         min_len=50,
         max_len=float("inf"),
         batch=256,
+        uracil=False,
+        transcriptome_mode=False,
         device="cuda",
     ):
         if profile.kde_unaligned is None or profile.mix_params is None:
@@ -194,8 +222,10 @@ class UnalignedSimulator:
         self.e_max = -(-(int(l_cap * 1.25) + 64) // 8) * 8
         self.tables = build_tables(profile, self.device)
         self.genome_dev = extract.GenomeDevice.from_packed(genome, self.device)
+        self.uracil = uracil
         self.kw = dict(l_cap=l_cap, e_max=self.e_max, min_len=min_len, max_len=max_len,
-                       fastq=fastq, circular_dna=circular_dna)
+                       fastq=fastq, circular_dna=circular_dna, uracil=uracil,
+                       transcriptome_mode=transcriptome_mode)
         self.batch = batch
 
     def batch_fn(self, emit_reads: bool = True):
@@ -206,12 +236,13 @@ class UnalignedSimulator:
 
     def run(self, n_reads, writer, seed=0, max_batches=None, resume_state=None):
         """Linear DNA runs the meta-only program with host reconstruction
-        unless NANOSIM_TPU_RECON=0; circular DNA the read-emitting one."""
+        unless NANOSIM_TPU_RECON=0; circular DNA and direct RNA reads
+        (`uracil`, moved as raw bytes) the read-emitting one."""
         from ..io.native import UnalignedWalkReplayer
         from .genome_mode import ResumeState, run_prefetched
         from .output import CompactFetcher
 
-        recon = want_recon(self.circular_dna)
+        recon = want_recon(self.circular_dna) and not self.uracil
         base = rng.base_key(seed, rng.STREAM_UNALIGNED, device=self.device)
         # without reconstruction the host needs no events (no error log)
         replayer = UnalignedWalkReplayer(
@@ -222,7 +253,8 @@ class UnalignedSimulator:
         fetcher = CompactFetcher(self.batch, est_bases / 1.2, replayer,
                                  recon_info=(seed, rng.STREAM_UNALIGNED, 0),
                                  lazy_replay=True, with_reads=not recon,
-                                 fastq=self.fastq, est_bases=est_bases)
+                                 fastq=self.fastq, est_bases=est_bases,
+                                 pack_reads=not self.uracil)
         fn = self.batch_fn(emit_reads=not recon)
 
         def make_batch(slot_start):

@@ -34,6 +34,8 @@ def test_importing_every_module_loads_no_jax():
     assert "nanosim_tpu_torch.ops.walk_cuda" in mods
     assert "nanosim_tpu_torch.ops.walk_ablate" in mods
     assert "nanosim_tpu_torch.sim.chimeric_mode" in mods
+    for m in ("ops.gather_window", "sim.ir", "sim.transcriptome_mode", "sim.run_transcriptome"):
+        assert "nanosim_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -88,26 +90,105 @@ def test_entry_points_default_to_the_card(tmp_path):
         chimeric_mode.ChimericGenomeSimulator(g, chi_prof)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         simulate_genome(ref, prefix, str(tmp_path / "out"), 10, chimeric=True)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        simulate_genome(ref, prefix, str(tmp_path / "out"), 10, perfect=True)
     # asked for explicitly, the CPU runs
     genome_mode.GenomeSimulator(g, prof, device="cpu")
     chimeric_mode.ChimericGenomeSimulator(g, chi_prof, device="cpu")
 
 
+def test_transcriptome_entry_points_default_to_the_card(tmp_path):
+    import torch
+
+    from nanosim_tpu_torch.io.genome import PackedGenome
+    from nanosim_tpu_torch.ops import gather_window
+    from nanosim_tpu_torch.profiles import fixtures, profile
+    from nanosim_tpu_torch.sim import unaligned_mode
+    from nanosim_tpu_torch.sim.run_transcriptome import (TranscriptomeSimulator,
+                                                         simulate_transcriptome)
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is exercised by chip_smoke.py")
+    prefix, trx, exp = _transcriptome_fixture(tmp_path)
+    t = PackedGenome.from_fasta(trx)
+    prof = profile.load_profile(prefix, mode="transcriptome", model_ir=False)
+    expr = profile.load_expression(exp, dict(zip(t.names, (int(x) for x in t.lengths))))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        TranscriptomeSimulator(t, prof, expr)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        unaligned_mode.UnalignedSimulator(t, prof, transcriptome_mode=True, uracil=True)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        simulate_transcriptome(trx, "", exp, prefix, str(tmp_path / "out"), 10, model_ir=False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        gather_window.measure_gather_variants()
+    # asked for explicitly, the CPU runs
+    TranscriptomeSimulator(t, prof, expr, device="cpu")
+
+
+def test_exact_conditional_is_refused(tmp_path):
+    """The exact 2D-KDE conditional is not ported: asking for it raises,
+    whatever the device."""
+    from nanosim_tpu_torch.io.genome import PackedGenome
+    from nanosim_tpu_torch.profiles import profile
+    from nanosim_tpu_torch.sim.run_transcriptome import TranscriptomeSimulator
+
+    prefix, trx, exp = _transcriptome_fixture(tmp_path)
+    t = PackedGenome.from_fasta(trx)
+    prof = profile.load_profile(prefix, mode="transcriptome", model_ir=False)
+    expr = profile.load_expression(exp, dict(zip(t.names, (int(x) for x in t.lengths))))
+    for device in ("cpu", "cuda"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TranscriptomeSimulator(t, prof, expr, exact_conditional=True, device=device)
+
+
+def test_windowed_gather_wrapper_never_runs_its_plain_version_off_the_cpu():
+    """K8's wrapper runs the plain version for CPU tensors only: a CUDA
+    tensor it cannot take (a wrong type, a wrong shape) and a tensor on
+    another device raise before any launch."""
+    import torch
+
+    from nanosim_tpu_torch.ops import gather_window as gw
+
+    class OnCard(torch.Tensor):  # a CPU tensor that says it lies on the card
+        @property
+        def is_cuda(self):
+            return True
+
+    def card(t):
+        return torch.Tensor._make_subclass(OnCard, t)
+
+    packed = torch.zeros((8, 300), dtype=torch.uint8)
+    idx = torch.zeros((8, 1024), dtype=torch.int32)
+    ws = torch.zeros((8, 1), dtype=torch.int32)
+    launches = gw.gather_windowed.launches
+    with pytest.raises(ValueError, match="int32 idx"):
+        gw.gather_windowed(card(packed), card(idx.long()), card(ws), 4, 8)
+    with pytest.raises(ValueError, match="shapes"):
+        gw.gather_windowed(card(packed), card(idx), card(torch.zeros((8, 2), dtype=torch.int32)),
+                           4, 8)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        gw.gather_windowed(packed.to("meta"), idx.to("meta"), ws.to("meta"), 4, 8)
+    assert gw.gather_windowed.launches == launches
+    assert gw.gather_windowed(packed, idx, ws, 4, 8).shape == (8, 1024)
+
+
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    for argv in (["simulate", "transcriptome", "-rt", "x"], ["characterize", "genome"]):
+    for argv in (["simulate", "metagenome", "-gl", "x"], ["characterize", "genome"]):
         res = subprocess.run([sys.executable, "-m", "nanosim_tpu_torch", *argv], cwd=REPO,
                              capture_output=True, text=True, timeout=120)
         assert res.returncode != 0
         assert "not ported" in res.stderr
 
 
-# genome options the port does not run yet: the CLI names them and exits 2
+# options the port does not run yet: the CLI names them and exits 2
+GENOME = ["genome", "-rg", "ref.fa"]
+TRANSCRIPTOME = ["transcriptome", "-rt", "trx.fa", "-e", "exp.tsv", "--no_model_ir"]
 NOT_PORTED_OPTIONS = {
-    "--perfect": ["--perfect"],
-    "-hp --perfect": ["-hp", "-k", "6", "--perfect"],
-    "-med/-sd": ["-med", "5000", "-sd", "1.0"],
-    "-x": ["-x", "10"],
-    "--num_hosts": ["--num_hosts", "2"],
+    "-med/-sd": GENOME + ["-med", "5000", "-sd", "1.0"],
+    "-x": GENOME + ["-x", "10"],
+    "--num_hosts": GENOME + ["--num_hosts", "2"],
+    "transcriptome -x": TRANSCRIPTOME + ["-x", "10"],
+    "transcriptome --num_hosts": TRANSCRIPTOME + ["--num_hosts", "2"],
 }
 
 
@@ -116,9 +197,69 @@ def test_cli_refuses_genome_options_not_ported(capsys, what):
     from nanosim_tpu_torch import cli
 
     with pytest.raises(SystemExit) as e:
-        cli.main(["genome", "-rg", "ref.fa", *NOT_PORTED_OPTIONS[what]])
+        cli.main(NOT_PORTED_OPTIONS[what])
     assert e.value.code == 2
     assert f"{what.split()[-1]} is not ported" in capsys.readouterr().err
+
+
+def test_cli_refuses_multi_host_transcriptome_runs():
+    from nanosim_tpu_torch.sim.run_transcriptome import simulate_transcriptome
+
+    with pytest.raises(NotImplementedError, match="not ported"):
+        simulate_transcriptome("trx.fa", "", "exp.tsv", "training", "out", 10, n_hosts=2,
+                               device="cpu")
+
+
+@pytest.mark.parametrize("options,message", [
+    (["transcriptome", "-rt", "trx.fa", "-e", "exp.tsv"],
+     "Please provide a reference genome to simulate intron retention events"),
+    (TRANSCRIPTOME + ["--polya", "polya.txt"], "Please input basecaller"),
+], ids=["ir-without-genome", "polya-without-basecaller"])
+def test_cli_transcriptome_checks_keep_their_messages(capsys, options, message):
+    from nanosim_tpu_torch import cli
+
+    with pytest.raises(SystemExit) as e:
+        cli.main(options)
+    assert e.value.code == 1
+    got = capsys.readouterr()
+    assert message in got.out + got.err
+
+
+@pytest.mark.parametrize("extra", [[], ["-dna_type", "circular", "--fastq"],
+                                   ["-hp", "-k", "6"]], ids=["linear", "circular-fastq", "hp"])
+def test_cli_accepts_perfect(tmp_path, extra):
+    """`--perfect` passes the CLI and reaches the simulator."""
+    _cli_reaches_the_simulator(tmp_path, ["--perfect", *extra])
+
+
+@pytest.mark.parametrize("extra", [["--fastq"], ["--uracil", "--perfect"], ["-hp", "-k", "6"]],
+                         ids=["cdna-fastq", "drna-perfect", "hp"])
+def test_cli_accepts_transcriptome(tmp_path, extra):
+    """`simulate transcriptome` passes the CLI and reaches the simulator,
+    which asks for the card."""
+    import torch
+
+    from nanosim_tpu_torch import cli
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the options on the card are driven by chip_smoke.py")
+    prefix, trx, exp = _transcriptome_fixture(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        cli.main(["transcriptome", "-rt", trx, "-e", exp, "-c", prefix, "--no_model_ir",
+                  "-o", str(tmp_path / "out"), "-n", "10", *extra])
+
+
+def _transcriptome_fixture(tmp_path):
+    from nanosim_tpu_torch.profiles import fixtures
+
+    prefix = str(tmp_path / "training")
+    fixtures.make_model_dir(prefix, mean_read_len=400, sd_read_len=100, n_kde_points=100,
+                            transcriptome=True, mean_2d_ref_len=800)
+    trx = str(tmp_path / "trx.fa")
+    names = fixtures.make_transcript_reference(trx, n_transcripts=5, mean_len=1200, seed=2)
+    exp = str(tmp_path / "exp.tsv")
+    fixtures.make_expression_tsv(exp, names, seed=3)
+    return prefix, trx, exp
 
 
 def test_cli_accepts_circular_dna(tmp_path):
