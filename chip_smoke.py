@@ -23,6 +23,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    printed.  Each kernel must equal its plain PyTorch version on the card on
    every output; then each is timed with CUDA events beside the plain
    version, its bound and (K3, K4, K5) one torch.gather of the same bytes.
+   A walk row also gives the kernel's self device time per launch
+   (torch.profiler) and its ns per serial step (that time over the longest
+   lane's steps); a K4 row its self device time per launch and
+   torch.gather's from torch.profiler, and the host's us per call of each
+   (1,000 calls, one synchronisation after them).
    The same for the chimeric path's shapes (bench configuration: batch 512,
    segment mean 1.3, s_max 8): the walks on the inputs the first meta-only
    batch's packed lanes give them (K1 at B = k_cap = 1,024, K2 at
@@ -83,7 +88,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    seconds of the Python log;
 12. the transcriptome at a small size, CUDA against CPU, byte-identical
    files: cDNA with polyA, direct RNA, intron retention, `-hp -k 6`,
-   `--perfect`, and cDNA and intron retention with NANOSIM_TPU_RECON=0; then
+   `--perfect`, and cDNA and intron retention with NANOSIM_TPU_RECON=0;
+   intron retention with three structures on the '-' strand, on both
+   routes (each route's CUDA files against its own CPU files; a read must
+   retain an intron of a '-' strand structure); then
    genome `--perfect` linear, circular, NANOSIM_TPU_RECON=0 and `-hp -k 6`
    circular;
 13. the transcriptome kernels' shapes (a synthetic transcriptome of 100,000
@@ -113,7 +121,9 @@ and `experiments` for the whole-step variants of K6 and K7 and the
 instances of K8); the line before it holds the other shapes and the other
 experiment variants.  The last line is {"ok": true, "device": {...}}.
 `--quick` runs only the builds and phases 12-15 (a short check while
-working on the newest slice).
+working on the newest slice); `--kernels` only the builds and the kernels at
+every path's shapes (phases 3 and 13, without the walk experiments), driving
+no path.
 """
 
 import contextlib
@@ -151,6 +161,10 @@ N_CHI_RECON0 = 2000  # NANOSIM_TPU_RECON=0 against Route A
 N_CHI_HP = 1000  # --chimeric -hp -k 6 on Route B (Python log per event)
 ABLATION_CHECK_STEPS = 256  # every experiment variant against its plain version
 TIMED_LAUNCHES = 10
+# the element gather (K4) at the transcriptome shapes takes a few us a call,
+# less than its launch path's host time: its CUDA-event times are taken over
+# more calls, so that one late call on a shared host does not set them
+GATHER_TIMED_LAUNCHES = 100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # Instruction rates: the 67 TFLOP/s float32 peak counts a fused multiply-add
 # as two operations over 128 float32 lanes per SM, so the float32 pipe issues
@@ -402,14 +416,27 @@ def _walk_case(kind: str, args, role: str, path: str):
     bound, bound_by = _bound_ms(in_bytes + out_bytes, ints, f32)
     ms = time_ms(lambda: kern(*args), TIMED_LAUNCHES)
     plain_ms = time_ms(lambda: plain(*args), 1)
-    blocks = -(-B // walk_cuda.THREADS_PER_BLOCK)
-    print(f"kernel {name}: B={B} E={E} ({blocks} blocks of "
-          f"{walk_cuda.THREADS_PER_BLOCK}) steps={steps} exact; {ms:.3f} ms "
-          f"(plain {plain_ms:.1f} ms, bound {bound:.4f} ms by {bound_by}, "
-          f"{ms / bound:.1f}x the bound)", flush=True)
+    # the kernel's own device time (the event time above also holds the
+    # wrapper's conversions and output allocation, which a short launch
+    # does not hide)
+    kernel_name = f"{kind}_walk_kernel"
+    device_ms, _ = _profiled_device_ms(
+        lambda: kern(*args), TIMED_LAUNCHES,
+        lambda key: kernel_name in key and (kind == "unaligned" or "unaligned" not in key))
+    lanes = walk_cuda.LANES_PER_BLOCK[kind]
+    blocks = -(-B // lanes)
+    # the launch takes at least the longest lane's serial chain of steps
+    longest = int(got[4].max()) if B else 0
+    ns_per_step = (device_ms or ms) * 1e6 / longest if longest else None
+    print(f"kernel {name}: B={B} E={E} ({blocks} blocks of {lanes} lanes) steps={steps} "
+          f"longest lane {longest} exact; {ms:.3f} ms, device {_fmt_ms(device_ms)} "
+          f"(profiler), {ns_per_step or 0:.1f} ns per serial step (plain {plain_ms:.1f} ms, "
+          f"bound {bound:.4f} ms by {bound_by}, {ms / bound:.1f}x the bound)", flush=True)
     return {
         "name": name, "route": "cuda", "source": "nanosim_tpu_torch/csrc/walk.cu",
-        "replaces": source_line, "B": B, "E": E, "blocks": blocks, "steps": steps,
+        "replaces": source_line, "B": B, "E": E, "blocks": blocks, "lanes_per_block": lanes,
+        "steps": steps, "longest_lane_steps": longest, "device_ms": device_ms,
+        "ns_per_serial_step": ns_per_step,
         "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "role": role,
         "path": path,
@@ -578,22 +605,86 @@ def _gather_u8_case(parts, idx, role: str, path: str):
     del got, want
     # each index read once (4 B), one element read and one written per position
     bound, bound_by = _bound_ms(B * L * (4 + 2 * es), 0, 0)
-    ms = time_ms(lambda: gather_cuda.gather_u8(parts, idx), TIMED_LAUNCHES)
-    plain_ms = time_ms(lambda: gather_cuda.gather_u8_plain(parts, idx), TIMED_LAUNCHES)
+    def kern():
+        return gather_cuda.gather_u8(parts, idx)
+
+    ms = time_ms(kern, GATHER_TIMED_LAUNCHES)
+    plain_ms = time_ms(lambda: gather_cuda.gather_u8_plain(parts, idx), GATHER_TIMED_LAUNCHES)
     # the library yardstick: torch.gather with its int64 index made outside
     idx64 = idx.long()
-    library_ms = time_ms(lambda: torch.gather(parts, 1, idx64), TIMED_LAUNCHES)
+
+    def lib():
+        return torch.gather(parts, 1, idx64)
+
+    library_ms = time_ms(lib, GATHER_TIMED_LAUNCHES)
+    # the device's share apart from the launch path's: self device time per
+    # launch from torch.profiler, and the host's time per call
+    device_ms, seen = _profiled_device_ms(kern, GATHER_TIMED_LAUNCHES,
+                                          lambda name: "gather_rows_kernel" in name)
+    library_device_ms, lib_seen = _profiled_device_ms(lib, GATHER_TIMED_LAUNCHES)
+    host_us = _host_us_per_call(kern)
+    library_host_us = _host_us_per_call(lib)
     del idx64
+    if seen != GATHER_TIMED_LAUNCHES:
+        log(f"{name} B={B} L={L}: the trace shows {seen} kernel launches of "
+            f"{GATHER_TIMED_LAUNCHES} (torch.gather: {lib_seen})")
     print(f"kernel {name}: B={B} L={L} W={W} exact; {ms:.4f} ms (plain {plain_ms:.4f} ms, "
           f"torch.gather {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by}, "
-          f"{ms / bound:.1f}x the bound)", flush=True)
+          f"{ms / bound:.1f}x the bound); device {_fmt_ms(device_ms)} against torch.gather's "
+          f"{_fmt_ms(library_device_ms)} (profiler); host {host_us:.2f} us per call against "
+          f"torch.gather's {library_host_us:.2f} us", flush=True)
     return {
         "name": name, "route": "cuda", "source": "nanosim_tpu_torch/csrc/gather.cu",
         "replaces": "nanosim_tpu/ops/pallas_gather.py:79", "B": B, "L": L, "W": W,
         "elem_bytes": es, "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms, "role": role,
-        "path": path,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
+        "device_ms": device_ms, "library_device_ms": library_device_ms,
+        "host_us_per_call": host_us, "library_host_us_per_call": library_host_us,
+        "role": role, "path": path,
     }
+
+
+def _fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _profiled_device_ms(fn, n: int, match=None):
+    """Self device time per launch of the kernels whose name `match`
+    accepts (every device kernel when it is None) over n calls of fn, from
+    torch.profiler: (ms per launch or None when the trace shows none,
+    launches seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and (match is None or match(e.key)):
+            total_us += us
+            count += e.count
+    return (total_us / 1e3 / count if count else None), count
+
+
+def _host_us_per_call(fn, n: int = 1000) -> float:
+    """Host clock over n calls of fn with no synchronisation inside the
+    loop and one after it: us per call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def phase_hp_kernels(prefix: str, circ_ref: str):
@@ -1357,6 +1448,9 @@ IR_GENOME = 10_000_000
 # exons, and a few hundred human genes have more than 100
 IR_LONG_EXONS = (363, 250, 180, 120)
 IR_MARKOV = ((0.6, 0.4), (0.55, 0.45), (0.35, 0.65))  # bench.py:295-298
+# the small fixture's structures put on the '-' strand for the '-' strand runs
+# (the CPU test's ir_minus fixture flips the same three)
+MINUS_STRAND_IR = (1, 4, 6)
 
 
 def make_ir_structures(d: str, n_transcripts: int, genome_len: int, seed: int,
@@ -1406,6 +1500,19 @@ def make_ir_structures(d: str, n_transcripts: int, genome_len: int, seed: int,
                 gf.write(f"chr1\tfix\t{t}\t{s + 1}\t{e}\t.\t+\t.\ttranscript_id={name}\n")
             out.append((name, len(seq)))
     return genome_fa, trx_fa, out
+
+
+def flip_strands(gff: str, names):
+    """Rewrite the structures' GFF3 with those of `names` on the '-' strand."""
+    out = []
+    with open(gff) as f:
+        for line in f:
+            c = line.rstrip("\n").split("\t")
+            if len(c) >= 9 and c[8].split("=")[-1] in names:
+                c[6] = "-"
+            out.append("\t".join(c))
+    with open(gff, "w") as f:
+        f.write("\n".join(out) + "\n")
 
 
 def make_trx_fixtures(d: str, n_trx: int, ir_trx: int, ir_genome: int, n_kde: int = 2000,
@@ -1498,23 +1605,43 @@ def phase_trx_cuda_vs_cpu(d: str):
     from nanosim_tpu_torch.profiles import fixtures
 
     fx = make_trx_fixtures(os.path.join(d, "trx_small"), 25, 12, 150000, n_kde=300)
+    # the same fixture with three of its structures on the '-' strand
+    fx_minus = make_trx_fixtures(os.path.join(d, "trx_small_minus"), 25, 12, 150000, n_kde=300)
+    minus = {f"ENSTIR{i:06d}" for i in MINUS_STRAND_IR}
+    flip_strands(os.path.join(d, "trx_small_minus", "training_added_intron_final.gff3"), minus)
     gprefix, gref = make_fixture(os.path.join(d, "perfect_small"), 0.4, 700, 250, 300)
     gcirc = os.path.join(d, "perfect_small", "circ.fa")
     fixtures.make_reference_fasta(gcirc, [200000], seed=12, with_iupac=True, hp_bias=0.6)
-    runs = [(k, None) for k in ("cDNA", "direct RNA", "intron retention", "-hp", "--perfect")]
-    runs += [("cDNA", "0"), ("intron retention", "0")]
-    for kind, recon in runs:
+    runs = [(fx, k, None, "") for k in ("cDNA", "direct RNA", "intron retention", "-hp",
+                                        "--perfect")]
+    runs += [(fx, "cDNA", "0", ""), (fx, "intron retention", "0", "")]
+    # '-' strand intron retention on both routes: each route's CUDA files
+    # equal its own CPU files (the two routes differ there by inheritance
+    # from the JAX package, ROADMAP section 3, and are not compared)
+    runs += [(fx_minus, "intron retention", recon, " (-)") for recon in (None, "0")]
+    for rfx, kind, recon, strand in runs:
         outs = {}
+        label = f"{kind}{strand}"
         with recon_env(recon):
             for dev in ("cpu", "cuda"):
-                out = os.path.join(d, "trx_small", f"{kind.replace(' ', '_')}{recon or ''}_{dev}")
-                _run_trx(fx, kind, out, 200, 64, dev)
+                out = os.path.join(os.path.dirname(rfx["prefix"]),
+                                   f"{kind.replace(' ', '_')}{recon or ''}_{dev}")
+                _run_trx(rfx, kind, out, 200, 64, dev)
                 outs[dev] = [sha(out + s) for s in FILES if os.path.exists(out + s)]
         if outs["cpu"] != outs["cuda"]:
-            fail(f"small transcriptome {kind} run (RECON={recon}): CUDA output differs from the "
+            fail(f"small transcriptome {label} run (RECON={recon}): CUDA output differs from the "
                  f"CPU output: {outs}")
-        print(f"small transcriptome {kind} run{' NANOSIM_TPU_RECON=0' if recon else ''}: CUDA "
-              "files byte-identical to the CPU path", flush=True)
+        extra = ""
+        if strand:  # the reads that retain an intron of a '-' strand structure
+            names = read_names(out + "_aligned_reads.fastq")
+            n_minus = sum(1 for nm in names
+                          if "_RetainedIntron_" in nm and nm.split("_")[0] in minus)
+            if n_minus == 0:
+                fail(f"small transcriptome {label} run: no read retains an intron of a '-' "
+                     "strand structure")
+            extra = f" ({n_minus} reads retain an intron of a '-' strand structure)"
+        print(f"small transcriptome {label} run{' NANOSIM_TPU_RECON=0' if recon else ''}: CUDA "
+              f"files byte-identical to the CPU path{extra}", flush=True)
     from nanosim_tpu_torch.sim.run import simulate_genome
 
     for label, ref, dna, recon, k in (("linear", gref, "linear", None, None),
@@ -1896,6 +2023,9 @@ def main():
                     help="a check of the newest slice only (builds, the windowed-gather "
                          "experiment, the transcriptome and --perfect phases); without it every "
                          "phase runs")
+    ap.add_argument("--kernels", action="store_true",
+                    help="the kernels only (builds, then K1-K5 at every path's shapes against "
+                         "their plain versions, timed), driving no path")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(REPO, "nanosim_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
@@ -1918,6 +2048,11 @@ def main():
                               "device": {"platform": "gpu", "kind": kind, "count": count}}))
             return
         t0 = time.time()
+        if args.kernels:
+            fx = make_trx_fixtures(os.path.join(d, "trx"), N_TRX, N_IR_TRX, IR_GENOME,
+                                   long_exons=IR_LONG_EXONS)
+            print(f"transcriptome fixture in {time.time() - t0:.1f}s", flush=True)
+            rows = phase_trx_kernels(fx)
         prefix, ref = make_fixture(os.path.join(d, "bench"), GENOME_MB, 8000, 2200, 2000)
         error_model.write_chimeric_info(prefix + "_chimeric_info", CHI_SEGMENT_MEAN, 0.2)
         circ_ref = os.path.join(d, "bench", "circ.fa")
@@ -1927,6 +2062,13 @@ def main():
         cases = (phase_kernels(prefix, ref) + phase_gather(prefix, circ_ref)
                  + phase_hp_kernels(prefix, circ_ref)
                  + phase_chimeric_kernels(prefix, ref, circ_ref))
+        if args.kernels:
+            print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
+                                          for k in rows + cases]}))
+            print(json.dumps({"ok": True, "kernels_only": True,
+                              "seconds": time.time() - t_start,
+                              "device": {"platform": "gpu", "kind": kind, "count": count}}))
+            return
         experiments = phase_experiments(prefix, ref, card)
         phase_cuda_vs_cpu(d)
         main_l, rate1, rate2 = phase_path("main", d, prefix, ref, N_READS, card, "linear",

@@ -1,6 +1,7 @@
-// The read path's two per-lane gathers, one CUDA thread per output position:
-// the packed-code gather of the fused read (gather_codes_kernel) and the plain
-// element gather of the unfused homopolymer path (gather_rows_kernel, below).
+// The read path's two per-lane gathers: the packed-code gather of the fused
+// read (gather_codes_kernel, one CUDA thread per four output positions of a
+// row) and the plain element gather of the unfused homopolymer path
+// (gather_rows_kernel, below, a 1-D grid over the flat output).
 //
 // --- gather_codes_kernel ---------------------------------------------------
 //
@@ -88,45 +89,114 @@ __global__ void gather_codes_kernel(const uint8_t* __restrict__ packed,  // [B, 
 // computed address, so none of that is carried over.
 //
 // What bounds it on an H100: bytes.  Per position it reads a 4-byte index,
-// reads one element and writes one element.  The layout is the code gather's:
-// one block covers 1024 consecutive positions of one lane (blockIdx.y is the
-// lane), each thread four of them at a stride of 256, so the index loads and
-// the stores of a warp are contiguous; the row is read through the read-only
-// cache, where the near-contiguous indices of an edit script hit the same
-// sectors.  Indices are clamped to the row so that a bad index cannot read
-// outside the buffer (the callers clip; the plain version raises).
+// reads one element and writes one element.  The grid is 1-D over the B*L
+// output positions, read as one flat array, and sized to the work (at most
+// kWaves waves of blocks, a grid-stride loop beyond that), so a short row
+// leaves no block partly idle.  Each thread takes four consecutive positions:
+// one 16-byte load of four indices, four element loads through the read-only
+// cache (the near-contiguous indices of an edit script hit the same
+// sectors), and one 4- or 8-byte store of the four elements.  Four flat
+// positions may straddle two rows (or more, when L < 4): each position
+// finds its own row.  The last B*L mod 4 positions, and every position when
+// a pointer is not aligned for the vector accesses, take a scalar loop.
+// Indices are clamped to the row so that a bad index cannot read outside
+// the buffer (the callers clip; the plain version raises).
 
-template <typename T>
-__global__ void gather_rows_kernel(const T* __restrict__ parts,       // [B, W]
-                                   int64_t W,
-                                   const int32_t* __restrict__ idx,   // [B, L]
-                                   int64_t L,
-                                   T* __restrict__ out) {             // [B, L]
-  const int64_t b = blockIdx.y;
-  const T* prow = parts + b * W;
-  const int32_t* irow = idx + b * L;
-  T* orow = out + b * L;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kCols + threadIdx.x;
+constexpr int kRowThreads = 256;
+constexpr int kWaves = 4;  // blocks in flight: at most this many full waves
+
+template <typename T> struct Vec4;
+template <> struct Vec4<uint8_t> { using type = uchar4; };
+template <> struct Vec4<uint16_t> { using type = ushort4; };
+
+template <typename T, typename I>
+__device__ __forceinline__ T gather_one(const T* __restrict__ prow, I W, int32_t s) {
+  const I c = s < 0 ? I(0) : (static_cast<I>(s) >= W ? W - 1 : static_cast<I>(s));
+  return __ldg(prow + c);
+}
+
+// I: the index type of the flat positions (32-bit when B*L and B*W fit)
+template <typename T, typename I>
+__global__ void __launch_bounds__(kRowThreads) gather_rows_kernel(
+    const T* __restrict__ parts,      // [B, W]
+    I W,
+    const int32_t* __restrict__ idx,  // [B, L]
+    I L,
+    I n_vec,                          // groups of four positions taken as vectors
+    I N,                              // B * L
+    T* __restrict__ out) {            // [B, L]
+  using V = typename Vec4<T>::type;
+  const I stride = static_cast<I>(gridDim.x) * kRowThreads;
+  const I tid = static_cast<I>(blockIdx.x) * kRowThreads + threadIdx.x;
+  for (I g = tid; g < n_vec; g += stride) {
+    const int4 s = __ldg(reinterpret_cast<const int4*>(idx) + g);
+    const I p = 4 * g;
+    const I b = p / L;
+    I j = p - b * L;
+    const T* prow = parts + b * W;
+    T v[4];
+    const int32_t si[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int64_t j = j0 + k * kThreads;
-    if (j < L) {
-      int64_t s = irow[j];
-      s = s < 0 ? 0 : (s >= W ? W - 1 : s);
-      orow[j] = __ldg(prow + s);
+    for (int k = 0; k < 4; ++k) {
+      if (j == L) {  // the next row
+        j = 0;
+        prow += W;
+      }
+      v[k] = gather_one(prow, W, si[k]);
+      ++j;
     }
+    V o;
+    o.x = v[0];
+    o.y = v[1];
+    o.z = v[2];
+    o.w = v[3];
+    reinterpret_cast<V*>(out)[g] = o;
   }
+  for (I p = 4 * n_vec + tid; p < N; p += stride) {
+    const I b = p / L;
+    out[p] = gather_one(parts + b * W, W, __ldg(idx + p));
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+template <typename T, typename I>
+int launch_rows(const void* parts, int64_t W, const void* idx, int64_t N, int64_t L, void* out,
+                void* stream) {
+  // the vector accesses need a 16-byte aligned index and a 4-element aligned output
+  const bool vec = reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % sizeof(typename Vec4<T>::type) == 0;
+  const int64_t n_vec = vec ? N / 4 : 0;
+  const int64_t work = n_vec + (N - 4 * n_vec);  // threads the work can use
+  const int64_t cap = static_cast<int64_t>(sm_count()) * (2048 / kRowThreads) * kWaves;
+  int64_t blocks = (work + kRowThreads - 1) / kRowThreads;
+  blocks = blocks < cap ? blocks : cap;
+  gather_rows_kernel<T, I><<<static_cast<unsigned>(blocks), kRowThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(parts), static_cast<I>(W), static_cast<const int32_t*>(idx),
+      static_cast<I>(L), static_cast<I>(n_vec), static_cast<I>(N), static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_gather_rows(const void* parts, int64_t W, const void* idx, int B, int64_t L,
                        void* out, void* stream) {
   if (B <= 0 || L <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>((L + kCols - 1) / kCols), static_cast<unsigned>(B));
-  gather_rows_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(parts), W, static_cast<const int32_t*>(idx), L,
-      static_cast<T*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const int64_t N = static_cast<int64_t>(B) * L;
+  // 32-bit positions when every flat position and row offset fits (with room
+  // for the grid stride past the end)
+  if (N < (int64_t{1} << 31) && static_cast<int64_t>(B) * W < (int64_t{1} << 31))
+    return launch_rows<T, uint32_t>(parts, W, idx, N, L, out, stream);
+  return launch_rows<T, uint64_t>(parts, W, idx, N, L, out, stream);
 }
 
 }  // namespace

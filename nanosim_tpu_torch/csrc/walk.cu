@@ -1,4 +1,5 @@
-// Error-state walks of the genome slice, one CUDA thread per read lane.
+// Error-state walks of the genome slice: the aligned walk with one warp per
+// read lane, the unaligned walk with one CUDA thread per read lane.
 //
 // Replaces the JAX package's TPU kernels ops/walk_pallas.py::error_walk_pallas
 // (aligned walk) and ops/walk_pallas.py::unaligned_walk_pallas (unaligned
@@ -14,17 +15,23 @@
 // the bench's shapes) are read from shared memory.  The work is integer
 // arithmetic: four threefry-2x32 hashes (20 rounds each) and a few hundred
 // compares per step, in a loop whose length is the lane's own event count.
-// So the kernel is bound by integer throughput and by divergence: a warp runs
-// until its slowest lane is done.  This first version copies the tables into
-// shared memory once per block and lets each lane exit on its own; sorting
-// lanes by length, binary search over the sorted rows and coalesced
-// step-major event stores are left for later work.
+// A step depends on the one before it, so a launch takes at least as long
+// as its longest lane's chain of steps.
+//
+// The unaligned walk runs one thread per lane: each step's hashes, the
+// mixture row scan and the state arithmetic in order, 128 lanes a block.
+// The aligned walk runs one warp per lane, 4 lanes a block (B=2,048 is 512
+// blocks, one wave on 132 SMs), and takes the hashes and the table scans off
+// each step's serial chain: the 32 threads of the warp hash 32 steps at once
+// and split every table row between them (aligned_walk_kernel below).
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (no PyTorch headers) and bound with ctypes; every launcher returns
 // cudaGetLastError().
 
+#include <climits>
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "walk_common.cuh"
@@ -33,9 +40,55 @@ namespace {
 
 using walk_common::draw;
 using walk_common::fold;
+using walk_common::kFullWarp;
+using walk_common::kRowGroup;
 using walk_common::mixture_len;
+using walk_common::round_up_group;
+using walk_common::round_up_warp;
+using walk_common::share_le;
+using walk_common::share_less;
+using walk_common::warp_count_le;
 
-__global__ void aligned_walk_kernel(
+constexpr int kThreads = 128;     // the unaligned walk: one thread per lane
+constexpr int kAlignedLanes = 4;  // the aligned walk: warps (read lanes) a block
+
+// one 4-byte word from device memory into shared memory, asynchronously
+template <typename V>
+__device__ __forceinline__ void copy_word(V* dst, const V* src) {
+  __pipeline_memcpy_async(dst, src, sizeof(V));
+}
+
+// The aligned walk's kernel is specialised on the groups of kRowGroup
+// entries its error-length rows (GL) and match-length rows (GM) are padded
+// to, 1 or 2 each (n_t and K at most 256, at most 32 bins: the bench's
+// tables and the fixtures' have n_t = 128, K = 150, 15 bins); GL = GM = 0
+// takes any table size.
+constexpr int kFastGroups = 2;
+
+__host__ __device__ __forceinline__ int row_pad(int groups, int n) {
+  return groups > 0 ? groups * kRowGroup : round_up_group(n);
+}
+
+// The aligned walk, one warp per read lane (kAlignedLanes lanes a block).
+//
+// The step uniforms depend only on (walk key, t), not on the walk's state, so
+// at the start of each chunk of 32 steps thread i hashes step t0 + i (the
+// folded key and the three draws) and keeps the uniforms in registers; the
+// serial walk then takes step t0 + k's uniforms with a shuffle from thread k,
+// and the hash chain is off each step's critical path.  The bits are the
+// same as one thread per lane computing them in order.  Every table lookup
+// is a warp-parallel count (walk_common.cuh): the transition rows and the
+// match-length bins are held in registers (thread i holds entry i) and
+// counted with one ballot each; the error-length row and the match-length
+// row do not depend on each other, so their groups are read together and
+// their loads are in flight at once.  With GL, GM > 0 the rows have exactly
+// that many groups and the step is straight-line code.  The state
+// arithmetic runs redundantly in every thread, so every thread holds the
+// same state and no broadcast is needed.  Thread k keeps the event word of
+// step t0 + k; the warp stores the chunk as one coalesced line, masked to
+// the steps actually taken.
+template <int GL, int GM>
+__global__ void __launch_bounds__(kAlignedLanes * 32, 4) aligned_walk_kernel(
     const uint32_t* __restrict__ wk,          // [B, 2] walk keys
     const int32_t* __restrict__ m_ref,        // [B]
     const int32_t* __restrict__ first_match,  // [B] prev_match at step 1
@@ -50,86 +103,143 @@ __global__ void aligned_walk_kernel(
     int32_t* __restrict__ ev,                 // [B, E], zero-filled by the caller
     int32_t* __restrict__ pos_out, int32_t* __restrict__ mref_out,
     int32_t* __restrict__ lnew_out, int32_t* __restrict__ nev_out) {
-  extern __shared__ uint32_t smem[];
-  float* s_cdf = reinterpret_cast<float*>(smem);
-  float* s_breaks = s_cdf + 3 * n_t;
-  int32_t* s_vals = reinterpret_cast<int32_t*>(s_breaks + nb * K);
-  int32_t* s_binlo = s_vals + nb * K;
-  int32_t* s_nbk = s_binlo + nb;
-  float* s_cum = reinterpret_cast<float*>(s_nbk + nb);
-  for (int i = threadIdx.x; i < 3 * n_t; i += blockDim.x) s_cdf[i] = cdf_t[i];
-  for (int i = threadIdx.x; i < nb * K; i += blockDim.x) {
-    s_breaks[i] = breaks[i];
-    s_vals[i] = vals[i];
+  // shared tables; the counted rows padded to whole groups (the bins to a
+  // whole warp) with values the compares never accept (walk_common.cuh)
+  constexpr bool kFast = GL > 0 && GM > 0;
+  const int nt_pad = row_pad(GL, n_t), k_pad = row_pad(GM, K);
+  const int nb_pad = round_up_warp(nb);
+  const float inf = __int_as_float(0x7F800000);
+  extern __shared__ float4 s_tables[];  // 16-byte aligned: the rows are read as float4
+  float* s_cdf = reinterpret_cast<float*>(s_tables);            // [3, nt_pad]
+  float* s_breaks = s_cdf + 3 * nt_pad;                         // [nb, k_pad]
+  int32_t* s_vals = reinterpret_cast<int32_t*>(s_breaks + nb * k_pad);  // [nb, K]
+  int32_t* s_binlo = s_vals + nb * K;                           // [nb_pad]
+  int32_t* s_nbk = s_binlo + nb_pad;                            // [nb]
+  // every word is copied by an asynchronous 4-byte copy, all of a thread's
+  // copies in flight together, and the padding is written directly
+  for (int r = 0; r < 3; ++r)
+    for (int c = threadIdx.x; c < nt_pad; c += blockDim.x) {
+      if (c < n_t) copy_word(s_cdf + r * nt_pad + c, cdf_t + r * n_t + c);
+      else s_cdf[r * nt_pad + c] = inf;
+    }
+  for (int r = 0; r < nb; ++r)
+    for (int c = threadIdx.x; c < k_pad; c += blockDim.x) {
+      if (c < K) copy_word(s_breaks + r * k_pad + c, breaks + r * K + c);
+      else s_breaks[r * k_pad + c] = inf;
+    }
+  for (int i = threadIdx.x; i < nb * K; i += blockDim.x) copy_word(s_vals + i, vals + i);
+  for (int i = threadIdx.x; i < nb_pad; i += blockDim.x) {
+    if (i < nb) copy_word(s_binlo + i, bin_lo + i);
+    else s_binlo[i] = INT_MAX;
   }
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
-    s_binlo[i] = bin_lo[i];
-    s_nbk[i] = n_bk[i];
-  }
-  for (int i = threadIdx.x; i < 21; i += blockDim.x) s_cum[i] = cum[i];
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) copy_word(s_nbk + i, n_bk + i);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kAlignedLanes + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp: b is the warp's lane
+  // thread i's entries of the transition rows (7 x 3 = 21) and of the bins
+  const float my_cum = lane < 21 ? cum[lane] : inf;
+  const int my_binlo = s_binlo[lane];
+  // groups of the error-length rows and of the match-length rows, and the
+  // groups both have
+  const int g_len = nt_pad / kRowGroup, g_match = k_pad / kRowGroup;
+  const int g_both = min(g_len, g_match);
   const uint32_t k0 = wk[2 * b], k1 = wk[2 * b + 1];
   int pos = first_match[b];
   int middle = m_ref[b];
-  int lnew = m_ref[b];
+  int lnew = middle;
   int state = 0;
-  int pm = first_match[b];
+  int pm = pos;
   int n = 0;
   int32_t* ev_row = ev + static_cast<size_t>(b) * E;
 
-  for (int t = 1; t <= E && pos < middle; ++t) {
+  for (int t0 = 1; t0 <= E && pos < middle; t0 += 32) {
+    // this thread's step of the chunk: t0 + lane
     uint32_t f0, f1;
-    fold(k0, k1, static_cast<uint32_t>(t), f0, f1);
-    const float u_err = draw(f0, f1, 0u);
-    const float u_len = draw(f0, f1, 1u);
-    const float u_match = draw(f0, f1, 2u);
+    fold(k0, k1, static_cast<uint32_t>(t0 + lane), f0, f1);
+    const float my_err = draw(f0, f1, 0u);
+    const float my_len = draw(f0, f1, 1u);
+    const float my_match = draw(f0, f1, 2u);
+    const int steps = min(32, E - t0 + 1);
+    uint32_t my_word = 0;
+    int k = 0;
+    for (; k < steps && pos < middle; ++k) {
+      const float u_err = __shfl_sync(kFullWarp, my_err, k);
+      const float u_len = __shfl_sync(kFullWarp, my_len, k);
+      const float u_match = __shfl_sync(kFullWarp, my_match, k);
 
-    // error type: min(count(cum[state] <= u), 2)
-    int et = (s_cum[state * 3] <= u_err) + (s_cum[state * 3 + 1] <= u_err) +
-             (s_cum[state * 3 + 2] <= u_err);
-    et = min(et, 2);
-    const int elen = mixture_len(s_cdf, n_t, et, u_len);
-    const bool is_ins = et == 1;
-    const bool is_del = et == 2;
-    const int e_pos2x = is_ins ? 2 * pos - 1 : 2 * pos;
-    const int pos_after = pos + (is_ins ? 0 : elen);
+      // the match-length bin of the previous match: count(bin_lo <= pm)
+      const int bc = kFast ? __popc(__ballot_sync(kFullWarp, my_binlo <= pm))
+                           : warp_count_le(s_binlo, nb_pad, pm, lane);
+      const int bin = min(max(bc - 1, 0), nb - 1);
+      // error type: min(count(cum[state] <= u), 2), the row being entries
+      // 3 * state .. 3 * state + 2
+      const bool in_row = static_cast<unsigned>(lane - 3 * state) < 3u;
+      const int et = min(__popc(__ballot_sync(kFullWarp, in_row && my_cum <= u_err)), 2);
 
-    // del/mis overshoot extends the reference span
-    const int over1 = max(pos_after - middle, 0);
-    int lnew_n = lnew + (is_ins ? elen : (is_del ? -elen : 0)) + over1;
-    int middle_n = max(middle, is_ins ? middle : pos_after);
+      // count(cdf[et] < u_len) and count(breaks[bin] <= u_match)
+      const float* len_row = s_cdf + et * nt_pad;
+      const float* match_row = s_breaks + bin * k_pad;
+      int c_len = 0, c_match = 0;
+      if (kFast) {
+#pragma unroll
+        for (int g = 0; g < (GL > GM ? GL : GM); ++g) {
+          if (g < GL) c_len += share_less(len_row, g, u_len, lane);
+          if (g < GM) c_match += share_le(match_row, g, u_match, lane);
+        }
+      } else {
+#pragma unroll 2
+        for (int g = 0; g < g_both; ++g) {
+          c_len += share_less(len_row, g, u_len, lane);
+          c_match += share_le(match_row, g, u_match, lane);
+        }
+        for (int g = g_both; g < g_len; ++g) c_len += share_less(len_row, g, u_len, lane);
+        for (int g = g_both; g < g_match; ++g) c_match += share_le(match_row, g, u_match, lane);
+      }
+      const int elen = 1 + __reduce_add_sync(kFullWarp, c_len);
+      const int c2 = __reduce_add_sync(kFullWarp, c_match);
 
-    // next match length from the bin of the previous one
-    int bc = 0;
-    for (int i = 0; i < nb; ++i) bc += (s_binlo[i] <= pm);
-    const int bin = min(max(bc - 1, 0), nb - 1);
-    const float* br = s_breaks + bin * K;
-    int c2 = 0;
-    for (int i = 0; i < K; ++i) c2 += (br[i] <= u_match);
-    const int idx = min(max(c2 - 1, 0), s_nbk[bin] - 1);
-    int mstep = s_vals[bin * K + idx];
-    if (pm == 0 && mstep == 0) mstep = 1;
-    const int over2 = max(pos_after + mstep - middle_n, 0);
-    lnew_n += over2;
-    middle_n = max(middle_n, pos_after + mstep);
+      const bool is_ins = et == 1;
+      const bool is_del = et == 2;
+      const int e_pos2x = is_ins ? 2 * pos - 1 : 2 * pos;
+      const int pos_after = pos + (is_ins ? 0 : elen);
 
-    const uint32_t word = static_cast<uint32_t>(e_pos2x) | (static_cast<uint32_t>(elen) << 19) |
-                          (static_cast<uint32_t>(et) << 30);
-    ev_row[n] = static_cast<int32_t>(word);
-    pos = pos_after + mstep;
-    middle = middle_n;
-    lnew = lnew_n;
-    state = et + 1 + (mstep == 0 ? 3 : 0);
-    pm = mstep;
-    ++n;
+      // del/mis overshoot extends the reference span
+      const int over1 = max(pos_after - middle, 0);
+      int lnew_n = lnew + (is_ins ? elen : (is_del ? -elen : 0)) + over1;
+      int middle_n = max(middle, is_ins ? middle : pos_after);
+
+      // next match length from the bin of the previous one
+      const int idx = min(max(c2 - 1, 0), s_nbk[bin] - 1);
+      int mstep = s_vals[bin * K + idx];
+      if (pm == 0 && mstep == 0) mstep = 1;
+      const int over2 = max(pos_after + mstep - middle_n, 0);
+      lnew_n += over2;
+      middle_n = max(middle_n, pos_after + mstep);
+
+      const uint32_t word = static_cast<uint32_t>(e_pos2x) |
+                            (static_cast<uint32_t>(elen) << 19) |
+                            (static_cast<uint32_t>(et) << 30);
+      if (lane == k) my_word = word;
+      pos = pos_after + mstep;
+      middle = middle_n;
+      lnew = lnew_n;
+      state = et + 1 + (mstep == 0 ? 3 : 0);
+      pm = mstep;
+    }
+    // steps t0 .. t0 + k - 1 are events n .. n + k - 1 (n == t0 - 1)
+    if (lane < k) ev_row[n + lane] = static_cast<int32_t>(my_word);
+    n += k;
   }
-  pos_out[b] = pos;
-  mref_out[b] = middle;
-  lnew_out[b] = lnew;
-  nev_out[b] = n;
+  if (lane == 0) {
+    pos_out[b] = pos;
+    mref_out[b] = middle;
+    lnew_out[b] = lnew;
+    nev_out[b] = n;
+  }
 }
 
 __global__ void unaligned_walk_kernel(
@@ -187,8 +297,6 @@ __global__ void unaligned_walk_kernel(
   nev_out[b] = n;
 }
 
-constexpr int kThreads = 128;
-
 cudaError_t set_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -204,12 +312,28 @@ extern "C" int launch_aligned_walk(const void* wk, const void* m_ref, const void
                                    void* pos, void* mref, void* lnew, void* nev,
                                    void* stream) {
   if (B <= 0) return 0;
-  const size_t smem = sizeof(float) * 3 * n_t + sizeof(float) * nb * K +
-                      sizeof(int32_t) * nb * K + sizeof(int32_t) * 2 * nb + sizeof(float) * 21;
-  cudaError_t e = set_smem(reinterpret_cast<const void*>(aligned_walk_kernel), smem);
+  // the specialised kernel where the tables fit its rows, else the general one
+  const int gl = n_t <= kRowGroup ? 1 : (n_t <= kFastGroups * kRowGroup ? 2 : 0);
+  const int gm = K <= kRowGroup ? 1 : (K <= kFastGroups * kRowGroup ? 2 : 0);
+  const bool fast = gl > 0 && gm > 0 && nb <= 32;
+  using Kernel = decltype(&aligned_walk_kernel<0, 0>);
+  const Kernel fast_kernels[2][2] = {{aligned_walk_kernel<1, 1>, aligned_walk_kernel<1, 2>},
+                                     {aligned_walk_kernel<2, 1>, aligned_walk_kernel<2, 2>}};
+  const Kernel kernel = fast ? fast_kernels[gl - 1][gm - 1] : aligned_walk_kernel<0, 0>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  // the kernel's shared tables, the counted rows padded (walk_common.cuh)
+  const int nt_pad = row_pad(fast ? gl : 0, n_t), k_pad = row_pad(fast ? gm : 0, K);
+  const int nb_pad = (nb + 31) & ~31;
+  const size_t smem = sizeof(float) * (3 * nt_pad + nb * k_pad) + sizeof(int32_t) * nb * K +
+                      sizeof(int32_t) * (nb_pad + nb);
+  cudaError_t e = set_smem(fn, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  aligned_walk_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  // shared memory bounds the blocks an SM holds: ask for the largest carve-out
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int blocks = (B + kAlignedLanes - 1) / kAlignedLanes;
+  kernel<<<blocks, kAlignedLanes * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(wk), static_cast<const int32_t*>(m_ref),
       static_cast<const int32_t*>(first_match), static_cast<const float*>(cdf_t), n_t,
       static_cast<const int32_t*>(bin_lo), static_cast<const float*>(breaks),

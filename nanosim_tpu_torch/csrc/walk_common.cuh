@@ -1,6 +1,7 @@
 // Device functions shared by the walk kernels (walk.cu, walk_ablate.cu): the
-// threefry-2x32 hash and the uniform draws of jax.random, bit for bit, and the
-// error-length lookup in the mixture tables.  ops/cuda_build.py counts this
+// threefry-2x32 hash and the uniform draws of jax.random, bit for bit, the
+// error-length lookup in the mixture tables, and the warp-cooperative counts
+// of the aligned walk (one warp per read lane).  ops/cuda_build.py counts this
 // header as a source of every .cu that includes it.
 
 #pragma once
@@ -62,6 +63,51 @@ __device__ __forceinline__ int mixture_len(const float* s_cdf, int n_t, int row,
   int cnt = 0;
   for (int i = 0; i < n_t; ++i) cnt += (r[i] < u);
   return 1 + cnt;
+}
+
+// --- warp-cooperative lookups (one warp per read lane) ----------------------
+//
+// Every table lookup of a walk step is a count of compares.  Split over the
+// 32 threads of a warp and summed across it, the count is the same integer
+// the serial scan gives, whatever the order of the row.  The rows sit in
+// shared memory padded with a value the compare never accepts: +inf for a
+// uniform, INT_MAX for a match length.  A short row (the match-length bins),
+// padded to a multiple of 32 entries, is counted with one ballot per 32
+// entries.  A long row, padded to a multiple of kRowGroup entries, is taken
+// kRowGroup entries at a time: thread i loads entries 4i .. 4i + 3 of the
+// group with one 16-byte load (a warp reads 512 contiguous bytes, no bank
+// conflict) and counts its share, and the caller sums the shares with one
+// __reduce_add_sync after the last group, so the loads of every group are in
+// flight together.  All threads of the warp must call these together, with
+// the same row and the same value.
+
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
+constexpr int kRowGroup = 128;  // entries of a long row a warp reads at once
+
+__device__ __forceinline__ int round_up_warp(int n) { return (n + 31) & ~31; }
+__device__ __host__ __forceinline__ int round_up_group(int n) {
+  return (n + kRowGroup - 1) / kRowGroup * kRowGroup;
+}
+
+// count(row[i] <= u) over a row padded to n_pad entries (a multiple of 32)
+template <typename V>
+__device__ __forceinline__ int warp_count_le(const V* row, int n_pad, V u, int lane) {
+  int cnt = 0;
+  for (int i0 = 0; i0 < n_pad; i0 += 32)
+    cnt += __popc(__ballot_sync(kFullWarp, row[i0 + lane] <= u));
+  return cnt;
+}
+
+// this thread's share of count(row[i] < u) over group g of a long row (16-byte aligned)
+__device__ __forceinline__ int share_less(const float* row, int g, float u, int lane) {
+  const float4 v = reinterpret_cast<const float4*>(row)[g * (kRowGroup / 4) + lane];
+  return (v.x < u) + (v.y < u) + (v.z < u) + (v.w < u);
+}
+
+// this thread's share of count(row[i] <= u) over group g of a long row (16-byte aligned)
+__device__ __forceinline__ int share_le(const float* row, int g, float u, int lane) {
+  const float4 v = reinterpret_cast<const float4*>(row)[g * (kRowGroup / 4) + lane];
+  return (v.x <= u) + (v.y <= u) + (v.z <= u) + (v.w <= u);
 }
 
 }  // namespace walk_common

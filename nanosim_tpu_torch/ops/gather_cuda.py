@@ -16,8 +16,8 @@ the CPU it runs the window-free ``take_along_axis`` branch that the plain
 version here reproduces.
 
 `gather_u8(parts, idx)` is ``take_along_axis(parts, idx, axis=1)`` on 1-byte
-or 2-byte elements with ``idx`` already clipped to the row: the plain version
-(`gather_u8_plain`, a torch.gather) for CPU tensors, the second kernel of
+or 2-byte integer elements with ``idx`` already clipped to the row: the plain
+version (`gather_u8_plain`, a torch.gather) for CPU tensors, the second kernel of
 csrc/gather.cu for CUDA tensors, counted in ``gather_u8.launches`` (and per
 element width in ``gather_u8.launches_by_width``).  It
 replaces the JAX package's one-hot TPU gather, whose packed-code variant is
@@ -32,7 +32,7 @@ import torch
 
 from .cuda_build import KernelLibrary
 
-MAX_LANES = 65535  # the kernel's grid puts the lane on blockIdx.y
+MAX_LANES = 65535  # the code gather's grid puts the lane on blockIdx.y
 
 
 def _bind(lib):
@@ -113,41 +113,59 @@ def gather_u8_plain(parts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(parts, 1, idx.long())
 
 
-_ROW_LAUNCHERS = {1: "launch_gather_u8", 2: "launch_gather_u16"}
+_ROW = {}  # element dtype -> (bound launcher, element bytes); "stream" -> raw-stream getter
+
+
+def _row_launchers() -> dict:
+    """The element gather's launchers by element dtype, resolved and typed
+    once, when the library loads, with the getter of the current stream's
+    raw handle."""
+    if not _ROW:
+        lib = LIBRARY.load()
+        for dtypes, fn, es in (((torch.uint8, torch.int8, torch.bool), lib.launch_gather_u8, 1),
+                               ((torch.int16, torch.uint16), lib.launch_gather_u16, 2)):
+            _ROW.update({dt: (fn, es) for dt in dtypes})
+        _ROW["stream"] = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
+                          or (lambda i: torch.cuda.current_stream(i).cuda_stream))
+    return _ROW
 
 
 def gather_u8(parts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """parts [B, W] of 1-byte (uint8) or 2-byte (int16, uint16) elements, idx
-    [B, L] int32 in [0, W) -> out[b, j] = parts[b, idx[b, j]]: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    """parts [B, W] of 1-byte (uint8, int8, bool) or 2-byte (int16, uint16)
+    elements, idx [B, L] int32 in [0, W) -> out[b, j] = parts[b, idx[b, j]]:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+
+    The launch path reads each attribute once: it runs once per batch on
+    the read-emitting routes, where its host time is of the order of the
+    kernel's device time."""
     if not idx.is_cuda:
         return gather_u8_plain(parts, idx)
-    if parts.device != idx.device:
-        raise ValueError(f"gather_u8: parts is on {parts.device}, idx on {idx.device}")
-    launcher = _ROW_LAUNCHERS.get(parts.element_size())
-    if launcher is None or parts.dtype.is_floating_point or idx.dtype != torch.int32:
+    row = _ROW or _row_launchers()
+    dtype = parts.dtype
+    entry = row.get(dtype)
+    if entry is None or idx.dtype is not torch.int32:
         raise ValueError(f"gather_u8: needs 1- or 2-byte integer parts and int32 idx, got "
-                         f"{parts.dtype} and {idx.dtype}")
-    if parts.dim() != 2 or idx.dim() != 2 or parts.shape[0] != idx.shape[0]:
-        raise ValueError(f"gather_u8: shapes {tuple(parts.shape)} and {tuple(idx.shape)} "
-                         "are not [B, W] and [B, L]")
-    B, L = idx.shape
-    W = parts.shape[1]
-    if B > MAX_LANES or W == 0:
-        raise ValueError(f"gather_u8: B={B} (at most {MAX_LANES}), W={W} (at least 1)")
-    lib = LIBRARY.load()
-    parts = parts.contiguous()
-    idx = idx.contiguous()
-    out = torch.empty((B, L), dtype=parts.dtype, device=idx.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(idx.device).cuda_stream)
-    rc = getattr(lib, launcher)(ctypes.c_void_p(parts.data_ptr()), W,
-                                ctypes.c_void_p(idx.data_ptr()), B, L,
-                                ctypes.c_void_p(out.data_ptr()), stream)
+                         f"{dtype} and {idx.dtype}")
+    shape, pshape = idx.shape, parts.shape
+    if len(shape) != 2 or len(pshape) != 2 or pshape[0] != shape[0] or pshape[1] == 0:
+        raise ValueError(f"gather_u8: shapes {tuple(pshape)} and {tuple(shape)} "
+                         "are not [B, W] and [B, L] with W at least 1")
+    dev = idx.get_device()
+    if parts.get_device() != dev:
+        raise ValueError(f"gather_u8: parts is on {parts.device}, idx on {idx.device}")
+    if not parts.is_contiguous():
+        parts = parts.contiguous()
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
+    out = idx.new_empty(shape, dtype=dtype)
+    launch, es = entry
+    rc = launch(parts.data_ptr(), pshape[1], idx.data_ptr(), shape[0], shape[1], out.data_ptr(),
+                row["stream"](dev))
     if rc != 0:
         raise RuntimeError(f"gather kernel launch failed: cudaError {rc}")
     gather_u8.launches += 1
-    width = parts.element_size()
-    gather_u8.launches_by_width[width] = gather_u8.launches_by_width.get(width, 0) + 1
+    by_width = gather_u8.launches_by_width
+    by_width[es] = by_width.get(es, 0) + 1
     return out
 
 

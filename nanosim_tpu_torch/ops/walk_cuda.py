@@ -15,7 +15,9 @@ walk is drawn outside, by the caller, as in the JAX package.
 
 The kernels are built from csrc/walk.cu by ops/cuda_build.py on first use
 (about a second; no PyTorch headers) and bound with ctypes.  See
-csrc/walk.cu for what bounds them on the card.
+csrc/walk.cu for what bounds them on the card: the aligned walk runs one warp
+per lane, hashing 32 steps at once and splitting each table row between the
+warp's threads; the unaligned walk one thread per lane.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ from .cuda_build import KernelLibrary
 
 UNROLL = 8  # steps per termination check in the plain loops
 MASK32 = 0xFFFFFFFF
-THREADS_PER_BLOCK = 128  # kThreads in csrc/walk.cu: one thread per lane
+# read lanes a block in csrc/walk.cu: the aligned walk runs one warp per lane
+# (kAlignedLanes), the unaligned walk one thread per lane (kThreads)
+LANES_PER_BLOCK = {"aligned": 4, "unaligned": 128}
 
 
 def _bind(lib):

@@ -64,7 +64,7 @@ def _row_inputs(B, W, L, seed, dtype):
     parts = rs.integers(0, 256 if dtype == np.uint8 else 1 << 15, (B, W)).astype(dtype)
     drift = np.cumsum(rs.integers(-1, 2, (B, L)), axis=1)
     idx = np.clip(rs.integers(0, 64, (B, 1)) + np.arange(L)[None, :] + drift, 0, W - 1)
-    idx[:, :2] = [0, W - 1]
+    idx[:, :2] = [0, W - 1][:L]
     return torch.from_numpy(parts), torch.from_numpy(idx.astype(np.int32))
 
 
@@ -88,21 +88,53 @@ def test_gather_codes_unpacked_on_cpu_matches_numpy():
     np.testing.assert_array_equal(got.numpy(), np.take_along_axis(codes, idx, axis=1))
 
 
+# (B, W, L, seed): a ragged shape; a small one; the transcriptome paths'
+# shapes (the direct-RNA unaligned pass, the aligned read-emitting batches);
+# rows whose length is not a multiple of 4, so that four flat positions
+# straddle two rows (and, with L < 4, several)
+ROW_SHAPES = ((37, 2900, 3000, 6), (3, 9, 17, 7), (512, 1536, 1536, 8), (512, 4096, 4096, 9),
+              (37, 1500, 1531, 10), (5, 4, 3, 11), (7, 2, 1, 12))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [np.uint8, np.int16])
 def test_row_gather_kernel_matches_plain_on_card(dtype):
     """The CUDA element gather equals its plain PyTorch version on the card,
-    exactly, for 1-byte and 2-byte elements, at a ragged shape (B=37,
-    L=3,000, W=2,900) and a small one."""
+    exactly, for 1-byte and 2-byte elements, at every shape of ROW_SHAPES,
+    and where the index and output are not aligned for its vector
+    accesses."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the gather kernel has no CPU mode")
     dev = torch.device("cuda")
-    for B, W, L, seed in ((37, 2900, 3000, 6), (3, 9, 17, 7)):
+    for B, W, L, seed in ROW_SHAPES:
         parts, idx = (t.to(dev) for t in _row_inputs(B, W, L, seed, dtype))
-        before = gather_cuda.gather_u8.launches
-        got = gather_cuda.gather_u8(parts, idx)
-        want = gather_cuda.gather_u8_plain(parts, idx)
-        torch.cuda.synchronize()
-        assert gather_cuda.gather_u8.launches == before + 1
-        assert got.dtype == parts.dtype and got.shape == (B, L)
-        assert torch.equal(got, want)
+        # the same indices one element past an aligned address (contiguous)
+        shifted = torch.empty(B * L + 1, dtype=torch.int32, device=dev)[1:].view(B, L)
+        shifted.copy_(idx)
+        for ix in (idx, shifted):
+            before = gather_cuda.gather_u8.launches
+            got = gather_cuda.gather_u8(parts, ix)
+            want = gather_cuda.gather_u8_plain(parts, ix)
+            torch.cuda.synchronize()
+            assert gather_cuda.gather_u8.launches == before + 1
+            assert got.dtype == parts.dtype and got.shape == (B, L)
+            assert torch.equal(got, want), (B, W, L)
+
+
+@pytest.mark.gpu
+def test_row_gather_wrapper_refuses_what_the_kernel_does_not_take():
+    """On the card the lighter launch path keeps every check: a float or a
+    4-byte element, a non-int32 index, a batch mismatch, a wrong rank, an
+    empty row and tensors on two devices raise, and launch nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: on the CPU the wrapper runs the plain version")
+    dev = torch.device("cuda")
+    parts, idx = (t.to(dev) for t in _row_inputs(4, 50, 60, 13, np.uint8))
+    bad = [(parts.float(), idx), (parts.half(), idx), (parts.int(), idx),
+           (parts, idx.long()), (parts[:3], idx), (parts[0], idx[0]),
+           (parts[:, :0], idx), (parts.cpu(), idx)]
+    before = gather_cuda.gather_u8.launches
+    for p_, i_ in bad:
+        with pytest.raises(ValueError):
+            gather_cuda.gather_u8(p_, i_)
+    assert gather_cuda.gather_u8.launches == before
