@@ -24,10 +24,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    every output; then each is timed with CUDA events beside the plain
    version, its bound and (K3, K4, K5) one torch.gather of the same bytes.
    A walk row also gives the kernel's self device time per launch
-   (torch.profiler) and its ns per serial step (that time over the longest
-   lane's steps); a K4 row its self device time per launch and
-   torch.gather's from torch.profiler, and the host's us per call of each
-   (1,000 calls, one synchronisation after them).
+   (torch.profiler) and the wrapper's host us per call (100 calls, the clock
+   read before the synchronisation after them); an aligned row its ns per
+   serial step (that time over the longest lane's steps), an unaligned row
+   the longest lane's rounds (128 steps: four warps a lane) and ns per
+   round; a K4 row its self device time per launch and torch.gather's from
+   torch.profiler, and the host's us per call of each (1,000 calls).
    The same for the chimeric path's shapes (bench configuration: batch 512,
    segment mean 1.3, s_max 8): the walks on the inputs the first meta-only
    batch's packed lanes give them (K1 at B = k_cap = 1,024, K2 at
@@ -165,6 +167,10 @@ TIMED_LAUNCHES = 10
 # less than its launch path's host time: its CUDA-event times are taken over
 # more calls, so that one late call on a shared host does not set them
 GATHER_TIMED_LAUNCHES = 100
+# calls of a walk wrapper for its host time: each is two launches (the
+# zero-filled events, the kernel), and at the main shape the device takes
+# longer than the host, so they stay well inside the launch queue
+WALK_HOST_CALLS = 100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 # Instruction rates: the 67 TFLOP/s float32 peak counts a fused multiply-add
 # as two operations over 128 float32 lanes per SM, so the float32 pipe issues
@@ -417,26 +423,36 @@ def _walk_case(kind: str, args, role: str, path: str):
     ms = time_ms(lambda: kern(*args), TIMED_LAUNCHES)
     plain_ms = time_ms(lambda: plain(*args), 1)
     # the kernel's own device time (the event time above also holds the
-    # wrapper's conversions and output allocation, which a short launch
-    # does not hide)
+    # wrapper's host work and the zero-filled output, which a short launch
+    # does not hide), and the wrapper's host time per call
     kernel_name = f"{kind}_walk_kernel"
     device_ms, _ = _profiled_device_ms(
         lambda: kern(*args), TIMED_LAUNCHES,
         lambda key: kernel_name in key and (kind == "unaligned" or "unaligned" not in key))
-    lanes = walk_cuda.LANES_PER_BLOCK[kind]
-    blocks = -(-B // lanes)
-    # the launch takes at least the longest lane's serial chain of steps
+    host_us = _host_us_per_call(lambda: kern(*args), WALK_HOST_CALLS)
+    # the launch takes at least the longest lane's chain: of steps (aligned),
+    # of rounds of 128 steps (unaligned: four warps a lane, a step a thread)
     longest = int(got[4].max()) if B else 0
-    ns_per_step = (device_ms or ms) * 1e6 / longest if longest else None
+    lanes = walk_cuda.LANES_PER_BLOCK[kind]
+    if kind == "aligned":
+        ns_per_step = device_ms * 1e6 / longest if device_ms and longest else None
+        row = {"ns_per_serial_step": ns_per_step}
+        chain_txt = f"{_fmt_ns(ns_per_step)} per serial step"
+    else:
+        rounds = -(-longest // walk_cuda.UNALIGNED_ROUND_STEPS)
+        ns_per_round = device_ms * 1e6 / rounds if device_ms and rounds else None
+        row = {"rounds": rounds, "ns_per_round": ns_per_round}
+        chain_txt = f"{rounds} rounds, {_fmt_ns(ns_per_round)} per round"
+    blocks = -(-B // lanes)
     print(f"kernel {name}: B={B} E={E} ({blocks} blocks of {lanes} lanes) steps={steps} "
-          f"longest lane {longest} exact; {ms:.3f} ms, device {_fmt_ms(device_ms)} "
-          f"(profiler), {ns_per_step or 0:.1f} ns per serial step (plain {plain_ms:.1f} ms, "
+          f"longest lane {longest} exact; {ms:.4f} ms, device {_fmt_ms(device_ms)} "
+          f"(profiler), host {host_us:.1f} us per call; {chain_txt} (plain {plain_ms:.1f} ms, "
           f"bound {bound:.4f} ms by {bound_by}, {ms / bound:.1f}x the bound)", flush=True)
     return {
         "name": name, "route": "cuda", "source": "nanosim_tpu_torch/csrc/walk.cu",
         "replaces": source_line, "B": B, "E": E, "blocks": blocks, "lanes_per_block": lanes,
         "steps": steps, "longest_lane_steps": longest, "device_ms": device_ms,
-        "ns_per_serial_step": ns_per_step,
+        "host_us_per_call": host_us, **row,
         "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None, "role": role,
         "path": path,
@@ -648,34 +664,49 @@ def _fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def _fmt_ns(ns):
+    return "not measured" if ns is None else f"{ns:.1f} ns"
+
+
+PROFILE_TRIES = 3  # traces taken before a device time is "not measured"
+
+
 def _profiled_device_ms(fn, n: int, match=None):
     """Self device time per launch of the kernels whose name `match`
     accepts (every device kernel when it is None) over n calls of fn, from
     torch.profiler: (ms per launch or None when the trace shows none,
-    launches seen)."""
+    launches seen).  The tracer drops some kernel records (a K4 trace of 100
+    launches has shown 68), and now and then all of a short window's: the
+    mean is over the launches seen, and a trace that shows none is taken
+    again, up to PROFILE_TRIES times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and (match is None or match(e.key)):
-            total_us += us
-            count += e.count
-    return (total_us / 1e3 / count if count else None), count
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0 and (match is None or match(e.key)):
+                total_us += us
+                count += e.count
+        if count:
+            return total_us / 1e3 / count, count
+    return None, 0
 
 
 def _host_us_per_call(fn, n: int = 1000) -> float:
     """Host clock over n calls of fn with no synchronisation inside the
-    loop and one after it: us per call."""
+    loop, read before the one after it: us per call.  Where the device takes
+    longer than the host, n must stay below the launch queue's depth (about
+    a thousand launches), or the host waits for the device inside the loop."""
     import torch
 
     fn()
@@ -683,8 +714,9 @@ def _host_us_per_call(fn, n: int = 1000) -> float:
     t0 = time.perf_counter()
     for _ in range(n):
         fn()
+    seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / n * 1e6
+    return seconds / n * 1e6
 
 
 def phase_hp_kernels(prefix: str, circ_ref: str):

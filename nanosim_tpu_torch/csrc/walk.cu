@@ -1,5 +1,5 @@
 // Error-state walks of the genome slice: the aligned walk with one warp per
-// read lane, the unaligned walk with one CUDA thread per read lane.
+// read lane, the unaligned walk with four warps per read lane.
 //
 // Replaces the JAX package's TPU kernels ops/walk_pallas.py::error_walk_pallas
 // (aligned walk) and ops/walk_pallas.py::unaligned_walk_pallas (unaligned
@@ -13,21 +13,30 @@
 // What bounds them on an H100: not bytes.  A lane reads its key and two
 // lengths and writes one 4-byte word per event; the tables (under 25 KB at
 // the bench's shapes) are read from shared memory.  The work is integer
-// arithmetic: four threefry-2x32 hashes (20 rounds each) and a few hundred
-// compares per step, in a loop whose length is the lane's own event count.
-// A step depends on the one before it, so a launch takes at least as long
-// as its longest lane's chain of steps.
+// arithmetic: three or four threefry-2x32 hashes (20 rounds each) and the
+// table lookups per step, in a loop whose length is the lane's own event
+// count.
 //
-// The unaligned walk runs one thread per lane: each step's hashes, the
-// mixture row scan and the state arithmetic in order, 128 lanes a block.
-// The aligned walk runs one warp per lane, 4 lanes a block (B=2,048 is 512
-// blocks, one wave on 132 SMs), and takes the hashes and the table scans off
-// each step's serial chain: the 32 threads of the warp hash 32 steps at once
-// and split every table row between them (aligned_walk_kernel below).
+// The aligned walk's step depends on the one before it (the Markov state and
+// the previous match length choose its rows), so a launch takes at least as
+// long as its longest lane's chain of steps.  It runs one warp per lane, 4
+// lanes a block (B=2,048 is 512 blocks, one wave on 132 SMs), and takes the
+// hashes and the table scans off each step's serial chain: the 32 threads of
+// the warp hash 32 steps at once and split every table row between them
+// (aligned_walk_kernel below).
+//
+// The unaligned walk has no such chain: a step's kind and length come from
+// its own uniforms, and the only thing carried is the position, which grows
+// by the step's advance.  So each warp of a lane takes 32 steps at once (four
+// warps a lane: 128 steps a round), each thread its own step from hash to
+// event word, and the position of every step is a prefix sum of the advances
+// (unaligned_walk_kernel below).
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (no PyTorch headers) and bound with ctypes; every launcher returns
-// cudaGetLastError().
+// cudaGetLastError().  The walk keys are passed as the [B, 2] int64 tensor
+// the walks hold them in; a kernel reads the low 32-bit word of each (the
+// uint32 key word), so no conversion runs before a launch.
 
 #include <climits>
 #include <cstdint>
@@ -38,18 +47,17 @@
 
 namespace {
 
+using walk_common::count_less_sorted;
 using walk_common::draw;
 using walk_common::fold;
 using walk_common::kFullWarp;
 using walk_common::kRowGroup;
-using walk_common::mixture_len;
 using walk_common::round_up_group;
 using walk_common::round_up_warp;
 using walk_common::share_le;
 using walk_common::share_less;
 using walk_common::warp_count_le;
 
-constexpr int kThreads = 128;     // the unaligned walk: one thread per lane
 constexpr int kAlignedLanes = 4;  // the aligned walk: warps (read lanes) a block
 
 // one 4-byte word from device memory into shared memory, asynchronously
@@ -89,7 +97,7 @@ __host__ __device__ __forceinline__ int row_pad(int groups, int n) {
 // the steps actually taken.
 template <int GL, int GM>
 __global__ void __launch_bounds__(kAlignedLanes * 32, 4) aligned_walk_kernel(
-    const uint32_t* __restrict__ wk,          // [B, 2] walk keys
+    const uint32_t* __restrict__ wk,          // [B, 4]: the [B, 2] int64 keys' words
     const int32_t* __restrict__ m_ref,        // [B]
     const int32_t* __restrict__ first_match,  // [B] prev_match at step 1
     const float* __restrict__ cdf_t, int n_t, // [3, n_t]
@@ -147,7 +155,7 @@ __global__ void __launch_bounds__(kAlignedLanes * 32, 4) aligned_walk_kernel(
   // groups both have
   const int g_len = nt_pad / kRowGroup, g_match = k_pad / kRowGroup;
   const int g_both = min(g_len, g_match);
-  const uint32_t k0 = wk[2 * b], k1 = wk[2 * b + 1];
+  const uint32_t k0 = wk[4 * b], k1 = wk[4 * b + 2];  // the low words
   int pos = first_match[b];
   int middle = m_ref[b];
   int lnew = middle;
@@ -242,59 +250,148 @@ __global__ void __launch_bounds__(kAlignedLanes * 32, 4) aligned_walk_kernel(
   }
 }
 
-__global__ void unaligned_walk_kernel(
-    const uint32_t* __restrict__ wk,          // [B, 2] walk keys
+// The two uniforms of unaligned step t (from 0): draws 0 and 1 of
+// uniform(fold_in(key, t), (2,)).
+__device__ __forceinline__ float2 unaligned_uniforms(uint32_t k0, uint32_t k1, int t) {
+  uint32_t f0, f1;
+  fold(k0, k1, static_cast<uint32_t>(t), f0, f1);
+  return make_float2(draw(f0, f1, 0u), draw(f0, f1, 1u));
+}
+
+// The unaligned walk: kUnalignedWarps warps per read lane, one lane a block.
+//
+// Step t's kind and error length depend only on its own two uniforms, and the
+// step advances the position by d_t (0 for an insertion, else its length).
+// With P_t the exclusive prefix sum of d, step t is taken exactly when
+// t < E and P_t < m_ref: middle_ref changes only at the step that crosses
+// m_ref, which is never an insertion, and after it pos == middle_ref.  P is
+// non-decreasing, so the taken steps are a prefix.  So each round thread i
+// takes step t0 + i (S = 32 W steps a round): its hashes, its kind, its
+// length (a binary search of its own type's row in shared memory: the rows
+// are non-decreasing, which ops/tables.py::MixtureDevice holds), its advance
+// and its event word.  A warp-wide inclusive scan of the advances (five
+// shuffles), plus the totals of the warps before it (shared memory, one
+// barrier a round), gives each step its P_t; the round's last step says
+// whether the lane goes on.  The only value carried from round to round is
+// the position at the round's start; the next round's hashes are computed
+// before this round's scan, off that chain.  Each taken step stores its
+// word, so a warp stores a round as one line, nothing past the lane's last
+// step.  At the end, with pos = P_n:
+//   middle_ref = max(m_ref, pos),
+//   l_new = m_ref + sum of (ins ? len : del ? -len : 0) + max(pos - m_ref, 0),
+// the last term being the crossing step's overshoot, added once.  Every sum
+// is of integers, so the order does not matter and the words and totals
+// equal the plain version's bit for bit.
+//
+// Four warps a lane were measured against 1, 2 and 8 at every shape a path
+// launches (PERF.md, the K2 rows): four is the fastest at B=2,048
+// (E=11,904), where one warp a lane leaves the longest lanes' rounds on too
+// few warps, and on the transcriptome's unaligned pass (B=512, E=1,984), and
+// within a few percent of the fastest at the chimeric gap lanes and at
+// B=8,192.
+constexpr int kUnalignedWarps = 4;
+
+__global__ void __launch_bounds__(kUnalignedWarps * 32) unaligned_walk_kernel(
+    const uint32_t* __restrict__ wk,          // [B, 4]: the [B, 2] int64 keys' words
     const int32_t* __restrict__ m_ref,        // [B]
-    const float* __restrict__ cdf_t, int n_t, // [3, n_t]
+    const float* __restrict__ cdf_t, int n_t, // [3, n_t], rows non-decreasing
     int B, int E,
     int32_t* __restrict__ ev,                 // [B, E], zero-filled by the caller
     int32_t* __restrict__ pos_out, int32_t* __restrict__ mref_out,
     int32_t* __restrict__ lnew_out, int32_t* __restrict__ nev_out) {
-  extern __shared__ uint32_t smem[];
-  float* s_cdf = reinterpret_cast<float*>(smem);
+  constexpr int W = kUnalignedWarps;
+  constexpr int S = 32 * W;       // steps a round
+  extern __shared__ float s_cdf[];  // [3, n_t]
+  __shared__ int s_total[2][W];   // each warp's advance in the round (two rounds' buffers)
+  __shared__ int s_last[2];       // the advance of the round's last step
+  __shared__ int s_sum[3][W];     // each warp's share of the lane's totals
   for (int i = threadIdx.x; i < 3 * n_t; i += blockDim.x) s_cdf[i] = cdf_t[i];
   __syncthreads();
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const uint32_t k0 = wk[2 * b], k1 = wk[2 * b + 1];
-  int pos = 0;
-  int middle = m_ref[b];
-  int lnew = m_ref[b];
-  int n = 0;
-  int32_t* ev_row = ev + static_cast<size_t>(b) * E;
-
-  for (int t = 0; t < E && pos < middle; ++t) {
-    uint32_t f0, f1;
-    fold(k0, k1, static_cast<uint32_t>(t), f0, f1);
-    const float u_type = draw(f0, f1, 0u);
-    const float u_len = draw(f0, f1, 1u);
-    // fixed type probabilities: 0=match 1=mis 2=ins 3=del
-    const int kind = (u_type >= 0.4f) + (u_type >= 0.7f) + (u_type >= 0.85f);
-    const int et = min(max(kind - 1, 0), 2);
-    const bool is_err = kind > 0;
-    const int elen = is_err ? mixture_len(s_cdf, n_t, et, u_len) : 1;
-    const bool is_ins = kind == 2;
-    const bool is_del = kind == 3;
-    const int e_pos2x = is_ins ? 2 * pos + 1 : 2 * pos;
-    const int e_len_store = is_err ? elen : 0;
-    const int pos_after = pos + (is_ins ? 0 : elen);
-    const int over = max(pos_after - middle, 0);
-    const int lnew_n = lnew + (is_ins ? elen : (is_del ? -elen : 0)) + (is_ins ? 0 : over);
-    const int middle_n = max(middle, is_ins ? middle : pos_after);
-    const uint32_t word = static_cast<uint32_t>(e_pos2x) |
-                          (static_cast<uint32_t>(e_len_store) << 19) |
-                          (static_cast<uint32_t>(et) << 30);
-    ev_row[n] = static_cast<int32_t>(word);
-    pos = pos_after;
-    middle = middle_n;
-    lnew = lnew_n;
-    ++n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x;
+  const int i = threadIdx.x;  // this thread's step of each round
+  const int m = m_ref[b];
+  if (m <= 0) {  // no step
+    if (i == 0) {
+      pos_out[b] = 0;
+      mref_out[b] = m;
+      lnew_out[b] = m;
+      nev_out[b] = 0;
+    }
+    return;
   }
-  pos_out[b] = pos;
-  mref_out[b] = middle;
-  lnew_out[b] = lnew;
-  nev_out[b] = n;
+  const uint32_t k0 = wk[4 * b], k1 = wk[4 * b + 2];  // the low words
+  int32_t* ev_row = ev + static_cast<size_t>(b) * E;
+  int carry = 0;                     // the position at the round's first step
+  int my_n = 0, my_d = 0, my_s = 0;  // this thread's taken steps: count, advance, l_new change
+  float2 u = unaligned_uniforms(k0, k1, i);
+  for (int t0 = 0, buf = 0; t0 < E; t0 += S, buf ^= 1) {
+    const int t = t0 + i;
+    const float2 u_next = unaligned_uniforms(k0, k1, t + S);
+    // fixed type probabilities: 0=match 1=mis 2=ins 3=del
+    const int kind = (u.x >= 0.4f) + (u.x >= 0.7f) + (u.x >= 0.85f);
+    const int et = min(max(kind - 1, 0), 2);
+    const int found = 1 + count_less_sorted(s_cdf + et * n_t, n_t, u.y);
+    const int elen = kind > 0 ? found : 1;
+    const bool is_ins = kind == 2;
+    const int d = is_ins ? 0 : elen;
+    const int dl = is_ins ? elen : (kind == 3 ? -elen : 0);
+    // inclusive prefix of the advances over the warp's steps
+    int incl = d;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFullWarp, incl, o);
+      if (lane >= o) incl += v;
+    }
+    // the advance of the round's steps in earlier warps, and of all of them
+    if (lane == 31) s_total[buf][warp] = incl;
+    if (i == S - 1) s_last[buf] = d;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int v = s_total[buf][w];
+      before += w < warp ? v : 0;
+      total += v;
+    }
+    const int p = carry + before + incl - d;  // P_t
+    if (t < E && p < m) {  // taken
+      const uint32_t word = static_cast<uint32_t>(2 * p + is_ins) |
+                            (static_cast<uint32_t>(kind > 0 ? elen : 0) << 19) |
+                            (static_cast<uint32_t>(et) << 30);
+      ev_row[t] = static_cast<int32_t>(word);
+      ++my_n;
+      my_d += d;
+      my_s += dl;
+    }
+    // the lane goes on while the round's last step was taken
+    if (t0 + S > E || carry + total - s_last[buf] >= m) break;
+    carry += total;
+    u = u_next;
+  }
+  const int n = __reduce_add_sync(kFullWarp, my_n);
+  const int d_sum = __reduce_add_sync(kFullWarp, my_d);
+  const int l_sum = __reduce_add_sync(kFullWarp, my_s);
+  if (lane == 0) {
+    s_sum[0][warp] = n;
+    s_sum[1][warp] = d_sum;
+    s_sum[2][warp] = l_sum;
+  }
+  __syncthreads();
+  if (i == 0) {
+    int n_all = 0, pos = 0, dsum = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      n_all += s_sum[0][w];
+      pos += s_sum[1][w];
+      dsum += s_sum[2][w];
+    }
+    pos_out[b] = pos;
+    mref_out[b] = max(m, pos);
+    lnew_out[b] = m + dsum + max(pos - m, 0);
+    nev_out[b] = n_all;
+  }
 }
 
 cudaError_t set_smem(const void* fn, size_t smem) {
@@ -351,8 +448,7 @@ extern "C" int launch_unaligned_walk(const void* wk, const void* m_ref, const vo
   const size_t smem = sizeof(float) * 3 * n_t;
   cudaError_t e = set_smem(reinterpret_cast<const void*>(unaligned_walk_kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  unaligned_walk_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  unaligned_walk_kernel<<<B, kUnalignedWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(wk), static_cast<const int32_t*>(m_ref),
       static_cast<const float*>(cdf_t), n_t, B, E, static_cast<int32_t*>(ev),
       static_cast<int32_t*>(pos), static_cast<int32_t*>(mref), static_cast<int32_t*>(lnew),

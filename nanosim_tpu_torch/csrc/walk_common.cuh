@@ -65,6 +65,22 @@ __device__ __forceinline__ int mixture_len(const float* s_cdf, int n_t, int row,
   return 1 + cnt;
 }
 
+// count(row[i] < u) over a NON-DECREASING row of n entries: the index of the
+// first entry >= u, found by a branchless binary search (the answer lies in
+// [base, base + len] throughout).  The loop runs ceil(log2(n)) times whatever
+// u is, so the threads of a warp searching for different u stay together.
+// On a row that is not non-decreasing it is not the count.
+__device__ __forceinline__ int count_less_sorted(const float* row, int n, float u) {
+  if (n <= 0) return 0;
+  const float* base = row;
+  for (int len = n; len > 1;) {
+    const int half = len >> 1;
+    base = base[half] < u ? base + half : base;
+    len -= half;
+  }
+  return static_cast<int>(base - row) + (*base < u);
+}
+
 // --- warp-cooperative lookups (one warp per read lane) ----------------------
 //
 // Every table lookup of a walk step is a count of compares.  Split over the

@@ -113,6 +113,18 @@ class KernelLibrary:
         return lib
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_raw_stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on card `device_index`, as
+    an int for a ctypes launcher (without building a Stream object where
+    this PyTorch has the direct getter)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream
+
+
 def time_ms(fn, n: int) -> float:
     """ms per call of fn on the card: CUDA events around n calls after a
     warm-up."""

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from .cuda_build import KernelLibrary
+from .cuda_build import KernelLibrary, current_raw_stream
 
 MAX_LANES = 65535  # the code gather's grid puts the lane on blockIdx.y
 
@@ -113,20 +113,17 @@ def gather_u8_plain(parts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(parts, 1, idx.long())
 
 
-_ROW = {}  # element dtype -> (bound launcher, element bytes); "stream" -> raw-stream getter
+_ROW = {}  # element dtype -> (bound launcher, element bytes)
 
 
 def _row_launchers() -> dict:
     """The element gather's launchers by element dtype, resolved and typed
-    once, when the library loads, with the getter of the current stream's
-    raw handle."""
+    once, when the library loads."""
     if not _ROW:
         lib = LIBRARY.load()
         for dtypes, fn, es in (((torch.uint8, torch.int8, torch.bool), lib.launch_gather_u8, 1),
                                ((torch.int16, torch.uint16), lib.launch_gather_u16, 2)):
             _ROW.update({dt: (fn, es) for dt in dtypes})
-        _ROW["stream"] = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
-                          or (lambda i: torch.cuda.current_stream(i).cuda_stream))
     return _ROW
 
 
@@ -160,7 +157,7 @@ def gather_u8(parts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = idx.new_empty(shape, dtype=dtype)
     launch, es = entry
     rc = launch(parts.data_ptr(), pshape[1], idx.data_ptr(), shape[0], shape[1], out.data_ptr(),
-                row["stream"](dev))
+                current_raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"gather kernel launch failed: cudaError {rc}")
     gather_u8.launches += 1

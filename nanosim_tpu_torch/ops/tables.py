@@ -124,10 +124,19 @@ class MixtureDevice:
     1.0f can never satisfy ``cdf < u`` for a u in [0, 1), so counting over the
     prefix of entries strictly below 1.0f is EXACTLY equal to counting over
     the full row.
+
+    Every row of `cdf_t` is non-decreasing (a CDF; checked at construction):
+    then ``count(row < u)`` is the index of the row's first entry >= u, which
+    the unaligned walk's kernel finds by a binary search.
     """
 
     cdf: torch.Tensor  # [3, n_max] f32
     cdf_t: torch.Tensor  # [3, n_t] f32, n_t = rounded-up count of sub-1.0f entries
+
+    def __post_init__(self):
+        if not bool((self.cdf_t[:, 1:] >= self.cdf_t[:, :-1]).all()):
+            raise ValueError("MixtureDevice: every row of cdf_t must be non-decreasing "
+                             "(a NaN breaks it too)")
 
     @classmethod
     def from_params(cls, params: MixtureParams, device, n_max: int = 1024) -> "MixtureDevice":

@@ -14,10 +14,18 @@ type << 30``, a per-lane prefix, zeros after it) and the final ``pos``,
 walk is drawn outside, by the caller, as in the JAX package.
 
 The kernels are built from csrc/walk.cu by ops/cuda_build.py on first use
-(about a second; no PyTorch headers) and bound with ctypes.  See
-csrc/walk.cu for what bounds them on the card: the aligned walk runs one warp
-per lane, hashing 32 steps at once and splitting each table row between the
-warp's threads; the unaligned walk one thread per lane.
+(seconds; no PyTorch headers) and bound with ctypes.  See csrc/walk.cu for
+what bounds them on the card: the aligned walk runs one warp per lane,
+hashing 32 steps at once and splitting each table row between the warp's
+threads; the unaligned walk runs four warps per lane, each thread taking a
+step of its own and the positions following from one prefix sum of the
+steps' advances.  Its length lookup is a binary search, which needs the
+mixture rows non-decreasing: ops/tables.py::MixtureDevice holds them so.
+
+A launch's host work is kept small: the tables are in the kernels' types
+from their construction (ops/tables.py) and are passed as they are, after a
+check of their type, layout and card; the keys go to the kernel as the int64
+tensor they are; and the four per-lane results share one allocation.
 """
 
 from __future__ import annotations
@@ -27,13 +35,16 @@ import ctypes
 import torch
 
 from . import rng
-from .cuda_build import KernelLibrary
+from .cuda_build import KernelLibrary, current_raw_stream
 
 UNROLL = 8  # steps per termination check in the plain loops
 MASK32 = 0xFFFFFFFF
-# read lanes a block in csrc/walk.cu: the aligned walk runs one warp per lane
-# (kAlignedLanes), the unaligned walk one thread per lane (kThreads)
-LANES_PER_BLOCK = {"aligned": 4, "unaligned": 128}
+# read lanes a block in csrc/walk.cu: the aligned walk runs one warp a lane,
+# 4 lanes a block (kAlignedLanes); the unaligned walk four warps a lane, one
+# lane a block (kUnalignedWarps)
+LANES_PER_BLOCK = {"aligned": 4, "unaligned": 1}
+# steps a round of the unaligned walk: 32 a warp, kUnalignedWarps = 4 warps a lane
+UNALIGNED_ROUND_STEPS = 128
 
 
 def _bind(lib):
@@ -181,14 +192,50 @@ def _check_cuda(name: str, device, *tensors):
             raise ValueError(f"{name}: all inputs must be on {device}, got {t.device}")
 
 
-def _outputs(B: int, E: int, device):
-    ev = torch.zeros((B, E), dtype=torch.int32, device=device)
-    rest = [torch.empty(B, dtype=torch.int32, device=device) for _ in range(4)]
-    return ev, rest
-
-
 def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _tables(name: str, dev: int, *tables):
+    """The data pointers of (tensor, dtype) pairs, each of which must be of
+    that dtype, contiguous and on card `dev`: the tables are built in the
+    kernels' types (ops/tables.py), so nothing is converted per call."""
+    ptrs = []
+    for t, dtype in tables:
+        if t.dtype is not dtype or not t.is_contiguous() or t.get_device() != dev:
+            raise ValueError(f"{name}: tables must be contiguous {dtype} on cuda:{dev}, got "
+                             f"{t.dtype} on {t.device}")
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
+def _lane_inputs(name: str, walk_keys, *per_lane):
+    """The keys as a contiguous [B, 2] int64 tensor (the kernels read the low
+    word of each, so nothing is converted) and the per-lane int32 inputs,
+    each copied only where its type or layout is not the kernel's; all on
+    the first per-lane input's card."""
+    B, dev = per_lane[0].shape[0], per_lane[0].get_device()
+    if walk_keys.shape != (B, 2):
+        raise ValueError(f"{name}: walk keys must be [{B}, 2], got {tuple(walk_keys.shape)}")
+    if walk_keys.dtype is not torch.int64 or not walk_keys.is_contiguous():
+        walk_keys = walk_keys.to(torch.int64).contiguous()
+    out = [walk_keys]
+    for t in per_lane:
+        if t.dtype is not torch.int32 or not t.is_contiguous():
+            t = t.to(torch.int32).contiguous()
+        out.append(t)
+    for t in out:
+        if t.get_device() != dev:
+            raise ValueError(f"{name}: all inputs must be on cuda:{dev}")
+    return out
+
+
+def _outputs(B: int, E: int, device: int):
+    """The zero-filled event words [B, E] and the four per-lane results, one
+    [4, B] allocation viewed as four rows."""
+    ev = torch.zeros((B, E), dtype=torch.int32, device=device)
+    rest = torch.empty((4, B), dtype=torch.int32, device=device)
+    return ev, rest
 
 
 def aligned_steps(walk_keys, m_ref, first_match, match_markov, mixtures, trans,
@@ -199,32 +246,29 @@ def aligned_steps(walk_keys, m_ref, first_match, match_markov, mixtures, trans,
         return aligned_steps_plain(walk_keys, m_ref, first_match, match_markov,
                                    mixtures, trans, max_events)
     lib = LIBRARY.load()
-    dev = m_ref.device
     B, E = m_ref.shape[0], int(max_events)
-    wk = _as_u32_words(walk_keys)
-    mref = m_ref.to(torch.int32).contiguous()
-    fm = first_match.to(torch.int32).contiguous()
-    cdf = mixtures.cdf_t.to(torch.float32).contiguous()
-    bin_lo = match_markov.bin_lo.to(torch.int32).contiguous()
-    breaks = match_markov.breaks.to(torch.float32).contiguous()
-    vals = match_markov.vals.to(torch.int32).contiguous()
-    n_bk = match_markov.n_bk.to(torch.int32).contiguous()
-    cum = trans.cum.to(torch.float32).contiguous()
-    _check_cuda("aligned_steps", dev, wk, fm, cdf, bin_lo, breaks, vals, n_bk, cum)
-    if cum.shape != (7, 3):
-        raise ValueError(f"aligned_steps: transition table must be [7, 3], got {tuple(cum.shape)}")
-    nb, K = breaks.shape
-    ev, (pos, mr, ln, ne) = _outputs(B, E, dev)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    wk, mref, fm = _lane_inputs("aligned_steps", walk_keys, m_ref, first_match)
+    dev = mref.get_device()
+    mm = match_markov
+    if trans.cum.shape != (7, 3):
+        raise ValueError(f"aligned_steps: transition table must be [7, 3], "
+                         f"got {tuple(trans.cum.shape)}")
+    cdf, bin_lo, breaks, vals, n_bk, cum = _tables(
+        "aligned_steps", dev, (mixtures.cdf_t, torch.float32), (mm.bin_lo, torch.int32),
+        (mm.breaks, torch.float32), (mm.vals, torch.int32), (mm.n_bk, torch.int32),
+        (trans.cum, torch.float32))
+    nb, K = mm.breaks.shape
+    ev, rest = _outputs(B, E, dev)
+    r = rest.data_ptr()
     rc = lib.launch_aligned_walk(
-        _ptr(wk), _ptr(mref), _ptr(fm), _ptr(cdf), cdf.shape[1], _ptr(bin_lo),
-        _ptr(breaks), _ptr(vals), _ptr(n_bk), nb, K, _ptr(cum), B, E,
-        _ptr(ev), _ptr(pos), _ptr(mr), _ptr(ln), _ptr(ne), stream)
+        wk.data_ptr(), mref.data_ptr(), fm.data_ptr(), cdf, mixtures.cdf_t.shape[1], bin_lo,
+        breaks, vals, n_bk, nb, K, cum, B, E, ev.data_ptr(), r, r + 4 * B, r + 8 * B,
+        r + 12 * B, current_raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"aligned walk kernel launch failed: cudaError {rc}")
     aligned_steps.launches += 1
     aligned_steps.launches_by_budget[E] = aligned_steps.launches_by_budget.get(E, 0) + 1
-    return ev, pos, mr, ln, ne
+    return (ev, *rest.unbind(0))
 
 
 aligned_steps.launches = 0
@@ -237,21 +281,19 @@ def unaligned_steps(walk_keys, m_ref, mixtures, max_steps: int):
     if not m_ref.is_cuda:
         return unaligned_steps_plain(walk_keys, m_ref, mixtures, max_steps)
     lib = LIBRARY.load()
-    dev = m_ref.device
     B, E = m_ref.shape[0], int(max_steps)
-    wk = _as_u32_words(walk_keys)
-    mref = m_ref.to(torch.int32).contiguous()
-    cdf = mixtures.cdf_t.to(torch.float32).contiguous()
-    _check_cuda("unaligned_steps", dev, wk, cdf)
-    ev, (pos, mr, ln, ne) = _outputs(B, E, dev)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    wk, mref = _lane_inputs("unaligned_steps", walk_keys, m_ref)
+    dev = mref.get_device()
+    (cdf,) = _tables("unaligned_steps", dev, (mixtures.cdf_t, torch.float32))
+    ev, rest = _outputs(B, E, dev)
+    r = rest.data_ptr()
     rc = lib.launch_unaligned_walk(
-        _ptr(wk), _ptr(mref), _ptr(cdf), cdf.shape[1], B, E,
-        _ptr(ev), _ptr(pos), _ptr(mr), _ptr(ln), _ptr(ne), stream)
+        wk.data_ptr(), mref.data_ptr(), cdf, mixtures.cdf_t.shape[1], B, E, ev.data_ptr(),
+        r, r + 4 * B, r + 8 * B, r + 12 * B, current_raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"unaligned walk kernel launch failed: cudaError {rc}")
     unaligned_steps.launches += 1
-    return ev, pos, mr, ln, ne
+    return (ev, *rest.unbind(0))
 
 
 unaligned_steps.launches = 0

@@ -7,6 +7,8 @@ equal.  The CUDA kernels are held against the plain PyTorch walks on the card
 in the `gpu`-marked test.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -163,8 +165,6 @@ def _padded_tables(tt, n_t=320, K=300, nb=40):
     2.0, bins that start past every match length): the walk is the same, but
     on the card it takes the aligned kernel's general instance (rows of more
     than 256 entries, more than 32 bins)."""
-    import dataclasses
-
     import torch.nn.functional as F
 
     mix, mm = tt.mixtures, tt.match_markov
@@ -216,6 +216,157 @@ def test_walks_use_plain_version_on_cpu(tables):
     assert (walk_cuda.aligned_steps.launches, walk_cuda.unaligned_steps.launches) == before
 
 
+# --- the unaligned kernel's scan identity ---------------------------------
+#
+# The unaligned kernel (csrc/walk.cu) does not walk: each thread takes a step
+# of its own, and the positions are one prefix sum of the steps' advances.
+# These cases hold that identity, written in plain torch, against the
+# step-by-step walks: budgets that are not multiples of the kernel's 128-step
+# rounds (40, 200), the chimeric gap budget (7,056) on a few lanes, with
+# lanes of no step (m_ref = 0), lanes cut off by the budget and lanes that
+# end inside it.  (E, lanes, seed); the card test runs the kernel on them.
+UNALIGNED_CASES = [
+    pytest.param(40, B, 23, id="40-truncated"),
+    pytest.param(200, B, 29, id="200-partial-round"),
+    pytest.param(7056, 6, 31, id="7056-gap-budget"),
+]
+UNALIGNED_EMPTY = slice(0, 3)  # lanes with m_ref = 0
+
+
+def _unaligned_mref(E, lanes, seed):
+    """m_ref of an unaligned case: the first lanes 0, the last one far past
+    the budget, the others random up to 1.5 steps a budget step (about half of
+    them end inside it)."""
+    m = np.random.default_rng(seed).integers(1, max(2, int(1.5 * E)), lanes).astype(np.int32)
+    m[UNALIGNED_EMPTY] = 0
+    m[-1] = 1 << 20
+    return m
+
+
+def _unaligned_by_scan(walk_keys, m_ref, mixtures, max_steps: int):
+    """The unaligned walk as the kernel computes it, with unaligned_steps'
+    results: every step's kind and length from its own uniforms, its advance
+    d_t (0 for an insertion), P_t the exclusive prefix sum of d, step t taken
+    exactly when P_t < m_ref; pos = P_n, middle_ref = max(m_ref, pos), l_new
+    = m_ref + the taken steps' (ins: +len, del: -len) + max(pos - m_ref, 0)."""
+    E, B = max_steps, m_ref.shape[0]
+    U = walk_cuda.step_uniforms(walk_keys, torch.arange(E, dtype=torch.int64), 2)  # [E, B, 2]
+    u_type, u_len = U[..., 0], U[..., 1]
+    kind = sum((u_type >= torch.tensor(c, dtype=torch.float32)).long() for c in (0.4, 0.7, 0.85))
+    etype = (kind - 1).clamp(0, 2)
+    sampled = mixtures.sample(etype.reshape(-1), u_len.reshape(-1)).reshape(E, B).long()
+    elen = torch.where(kind > 0, sampled, 1)
+    is_ins, is_del = kind == 2, kind == 3
+    d = torch.where(is_ins, 0, elen)
+    signed = torch.where(is_ins, elen, torch.where(is_del, -elen, 0))
+    p = torch.cumsum(d, 0) - d
+    m = m_ref.long()
+    taken = p < m[None, :]
+    assert bool((taken[1:] <= taken[:-1]).all())  # the taken steps are a prefix
+    pos = (d * taken).sum(0)
+    words = torch.where(taken, walk_cuda._word(2 * p + is_ins.long(),
+                                               torch.where(kind > 0, elen, 0), etype), 0)
+    l_new = m + (signed * taken).sum(0) + (pos - m).clamp_min(0)
+    i32 = lambda t: t.to(torch.int32)
+    return (words.T.contiguous(), i32(pos), i32(torch.maximum(m, pos)), i32(l_new),
+            i32(taken.sum(0)))
+
+
+@pytest.mark.parametrize("E,lanes,seed", UNALIGNED_CASES)
+def test_unaligned_scan_identity(tables, monkeypatch, E, lanes, seed):
+    """The prefix-sum form of the unaligned walk equals the port's plain walk
+    and the JAX package's XLA walk, on every output."""
+    import jax.numpy as jnp
+
+    from nanosim_tpu.ops import error_walk as jwalk
+
+    _, jt, tt = tables
+    jk, tk = _keys(seed, lanes)
+    m = _unaligned_mref(E, lanes, seed)
+    uk = trng.site_keys(tk, trng.SITE_UNALIGNED_WALK)
+    got = _unaligned_by_scan(uk, torch.from_numpy(m), tt.mixtures, E)
+    want = walk_cuda.unaligned_steps_plain(uk, torch.from_numpy(m), tt.mixtures, E)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    jr = jwalk.unaligned_walk(jk, jnp.asarray(m), jt.mixtures, E)
+    monkeypatch.setattr(walk_cuda, "unaligned_steps", _unaligned_by_scan)
+    tr = twalk.unaligned_walk(tk, torch.from_numpy(m), tt.mixtures, E)
+    _compare(jr, tr, ("middle_ref", "l_new", "overflow", "events_valid"))
+    # not vacuous: lanes with no step, lanes cut off by the budget, lanes done
+    n, over = got[4], got[1] < got[2]
+    assert (n[UNALIGNED_EMPTY] == 0).all() and over[-1] and n[-1] == E
+    assert (~over[UNALIGNED_EMPTY.stop:]).any()
+
+
+def _count_less_sorted(row: np.ndarray, u: np.float32) -> int:
+    """csrc/walk_common.cuh::count_less_sorted, step for step."""
+    base, n = 0, len(row)
+    while n > 1:
+        half = n >> 1
+        base = base + half if row[base + half] < u else base
+        n -= half
+    return base + int(row[base] < u)
+
+
+def _mixture_rows_spread():
+    """Mixture tables of MixtureDevice.from_params over a spread of
+    parameters (Poisson / Weibull scale, Weibull shape, geometric p, weight)."""
+    from nanosim_tpu_torch.ops.tables import MixtureDevice
+    from nanosim_tpu_torch.profiles.error_model import MixtureParams
+
+    for lam, k, p, w in [(0.3, 0.4, 0.9, 0.0), (1.0, 1.0, 0.5, 0.5), (2.5, 0.8, 0.2, 0.9),
+                         (8.0, 2.0, 0.05, 1.0), (30.0, 4.0, 0.7, 0.3), (120.0, 0.6, 0.01, 0.6)]:
+        params = MixtureParams(mis=np.array([lam, 0.0, p, w]), ins=np.array([lam, k, p, w]),
+                               dele=np.array([lam / 2, k * 1.5, min(p * 2, 0.95), 1 - w]))
+        yield f"{lam}-{k}-{p}-{w}", MixtureDevice.from_params(params, "cpu")
+
+
+def test_mixture_rows_are_sorted_and_searchable(tables):
+    """The fixture profile's mixture rows and those of from_params over a
+    spread of parameters are non-decreasing, as the unaligned kernel's binary
+    search needs; on such rows the first index whose entry is >= u
+    (torch.searchsorted, and the kernel's branchless search) is count(row <
+    u), for uniforms and for u equal to an entry or next to one."""
+    _, _, tt = tables
+    rng = np.random.default_rng(37)
+    for name, mix in [("fixture", tt.mixtures), *_mixture_rows_spread()]:
+        cdf = mix.cdf_t
+        assert bool((cdf[:, 1:] >= cdf[:, :-1]).all()), name
+        for row in cdf:
+            r = row.numpy()
+            us = np.concatenate([
+                rng.random(300, dtype=np.float32), r, np.nextafter(r, np.float32(0)),
+                np.nextafter(r, np.float32(1)), np.float32([0.0, 1.0 - 2**-24])]).astype(np.float32)
+            u = torch.from_numpy(us)
+            want = (row[None, :] < u[:, None]).sum(1)
+            assert torch.equal(torch.searchsorted(row, u, side="left"), want), name
+            picks = rng.choice(len(us), 64, replace=False)
+            assert [_count_less_sorted(r, us[j]) for j in picks] == want[picks].tolist(), name
+
+
+def test_mixture_rows_must_be_non_decreasing(tables):
+    """A mixture table whose rows are not all non-decreasing is refused where
+    it is made, whichever way: rows out of order, a NaN, or parameters (a
+    mixture weight outside [0, 1]) whose CDF decreases.  So every table the
+    unaligned kernel is given can be searched."""
+    from nanosim_tpu_torch.ops.tables import MixtureDevice
+    from nanosim_tpu_torch.profiles.error_model import MixtureParams
+
+    _, _, tt = tables
+    cdf = tt.mixtures.cdf_t
+    shuffled = cdf[:, torch.randperm(cdf.shape[1], generator=torch.Generator().manual_seed(3))]
+    nan = cdf.clone()
+    nan[1, 5] = float("nan")
+    for bad in (shuffled.contiguous(), nan):
+        with pytest.raises(ValueError, match="non-decreasing"):
+            dataclasses.replace(tt.mixtures, cdf_t=bad)
+    ok = np.array([2.0, 1.0, 0.3, 0.5])
+    with pytest.raises(ValueError, match="non-decreasing"):
+        MixtureDevice.from_params(
+            MixtureParams(mis=np.array([2.0, 0.0, 0.3, -2.0]), ins=ok, dele=ok), "cpu")
+    assert torch.equal(dataclasses.replace(tt.mixtures, cdf_t=cdf.clone()).cdf_t, cdf)
+
+
 @pytest.mark.gpu
 def test_walk_kernels_match_plain_on_card(tmp_path):
     """Each CUDA kernel equals its plain PyTorch version on the card, on every
@@ -262,3 +413,15 @@ def test_walk_kernels_match_plain_on_card(tmp_path):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+    # the unaligned kernel on the scan-identity cases (budgets that are not
+    # multiples of its 128-step rounds, lanes of no step beside long ones,
+    # lanes cut off by the budget)
+    for case in UNALIGNED_CASES:
+        E, lanes, seed = case.values
+        cuk = trng.site_keys(_port_keys(seed, lanes, dev), trng.SITE_UNALIGNED_WALK)
+        cm = torch.as_tensor(_unaligned_mref(E, lanes, seed), device=dev)
+        want = walk_cuda.unaligned_steps_plain(cuk, cm, tt.mixtures, E)
+        got = walk_cuda.unaligned_steps(cuk, cm, tt.mixtures, E)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), case.id
