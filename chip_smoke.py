@@ -28,8 +28,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    read before the synchronisation after them); an aligned row its ns per
    serial step (that time over the longest lane's steps), an unaligned row
    the longest lane's rounds (128 steps: four warps a lane) and ns per
-   round; a K4 row its self device time per launch and torch.gather's from
-   torch.profiler, and the host's us per call of each (1,000 calls).
+   round; a K3, K4 or K5 row its self device time per launch and
+   torch.gather's from torch.profiler, and the host's us per call of each
+   (K4 1,000 calls; K3 and K5 100, since at the path's shapes their launches
+   outlast the host's calls), all three timed over 100 calls with events; the
+   trace of K3's and of K5's calls must show no device op but the kernel's
+   (each call one launch).
    The same for the chimeric path's shapes (bench configuration: batch 512,
    segment mean 1.3, s_max 8): the walks on the inputs the first meta-only
    batch's packed lanes give them (K1 at B = k_cap = 1,024, K2 at
@@ -500,7 +504,6 @@ def phase_gather(prefix: str, circ_ref: str):
 
     from nanosim_tpu_torch.io.genome import PackedGenome
     from nanosim_tpu_torch.ops import apply_errors, gather_cuda, rng
-    from nanosim_tpu_torch.ops.cuda_build import time_ms
     from nanosim_tpu_torch.profiles import profile
     from nanosim_tpu_torch.sim.genome_mode import GenomeSimulator
 
@@ -537,24 +540,26 @@ def phase_gather(prefix: str, circ_ref: str):
         if max_err != 0:
             fail(f"gather_codes B={B} L={L}: kernel differs from its plain version "
                  f"(max abs err {max_err})")
+        del got
         # each index read once (4 B), each packed row once, each code written once
         bound, bound_by = _bound_ms(4 * B * L + B * PB + B * L, 0, 0)
-        ms = time_ms(lambda: gather_cuda.gather_codes(packed, src), TIMED_LAUNCHES)
-        plain_ms = time_ms(lambda: gather_cuda.gather_codes_plain(packed, src), TIMED_LAUNCHES)
         # the library yardstick: one torch.gather of the packed bytes (its
         # int64 index is made outside the timed call)
         idx = (src >> 2).clamp(0, PB - 1).long()
-        library_ms = time_ms(lambda: torch.gather(packed, 1, idx), TIMED_LAUNCHES)
+        label = f"gather_codes B={B} L={L}"
+        times = _kernel_times(label, lambda: gather_cuda.gather_codes(packed, src),
+                              lambda: gather_cuda.gather_codes_plain(packed, src),
+                              lambda: torch.gather(packed, 1, idx), "gather_codes",
+                              GATHER_TIMED_LAUNCHES, one_kernel=True)
+        del idx, want
         results.append({
             "name": "gather_codes", "route": "cuda", "source": "nanosim_tpu_torch/csrc/gather.cu",
             "replaces": "nanosim_tpu/ops/window_gather.py:115", "B": B, "L": L, "PB": PB,
-            "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms, "role": role,
-            "path": "circular" if role else "",
+            "max_abs_err": float(max_err), **times, "bound_ms": bound, "bound_by": bound_by,
+            "role": role, "path": "circular" if role else "",
         })
-        print(f"kernel gather_codes: B={B} L={L} PB={PB} exact; {ms:.4f} ms (plain "
-              f"{plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms, bound {bound:.4f} ms by "
-              f"{bound_by}, {ms / bound:.1f}x the bound)", flush=True)
+        print(f"kernel gather_codes: B={B} L={L} PB={PB} exact; "
+              f"{_times_text(times, bound, bound_by)}", flush=True)
     return results
 
 
@@ -603,7 +608,6 @@ def _gather_u8_case(parts, idx, role: str, path: str):
     import torch
 
     from nanosim_tpu_torch.ops import gather_cuda
-    from nanosim_tpu_torch.ops.cuda_build import time_ms
 
     B, L = idx.shape
     W, es = parts.shape[1], parts.element_size()
@@ -621,43 +625,66 @@ def _gather_u8_case(parts, idx, role: str, path: str):
     del got, want
     # each index read once (4 B), one element read and one written per position
     bound, bound_by = _bound_ms(B * L * (4 + 2 * es), 0, 0)
-    def kern():
-        return gather_cuda.gather_u8(parts, idx)
-
-    ms = time_ms(kern, GATHER_TIMED_LAUNCHES)
-    plain_ms = time_ms(lambda: gather_cuda.gather_u8_plain(parts, idx), GATHER_TIMED_LAUNCHES)
     # the library yardstick: torch.gather with its int64 index made outside
     idx64 = idx.long()
-
-    def lib():
-        return torch.gather(parts, 1, idx64)
-
-    library_ms = time_ms(lib, GATHER_TIMED_LAUNCHES)
-    # the device's share apart from the launch path's: self device time per
-    # launch from torch.profiler, and the host's time per call
-    device_ms, seen = _profiled_device_ms(kern, GATHER_TIMED_LAUNCHES,
-                                          lambda name: "gather_rows_kernel" in name)
-    library_device_ms, lib_seen = _profiled_device_ms(lib, GATHER_TIMED_LAUNCHES)
-    host_us = _host_us_per_call(kern)
-    library_host_us = _host_us_per_call(lib)
+    times = _kernel_times(f"{name} B={B} L={L}", lambda: gather_cuda.gather_u8(parts, idx),
+                          lambda: gather_cuda.gather_u8_plain(parts, idx),
+                          lambda: torch.gather(parts, 1, idx64), "gather_rows_kernel", 1000)
     del idx64
-    if seen != GATHER_TIMED_LAUNCHES:
-        log(f"{name} B={B} L={L}: the trace shows {seen} kernel launches of "
-            f"{GATHER_TIMED_LAUNCHES} (torch.gather: {lib_seen})")
-    print(f"kernel {name}: B={B} L={L} W={W} exact; {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-          f"torch.gather {library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by}, "
-          f"{ms / bound:.1f}x the bound); device {_fmt_ms(device_ms)} against torch.gather's "
-          f"{_fmt_ms(library_device_ms)} (profiler); host {host_us:.2f} us per call against "
-          f"torch.gather's {library_host_us:.2f} us", flush=True)
+    print(f"kernel {name}: B={B} L={L} W={W} exact; {_times_text(times, bound, bound_by)}",
+          flush=True)
     return {
         "name": name, "route": "cuda", "source": "nanosim_tpu_torch/csrc/gather.cu",
         "replaces": "nanosim_tpu/ops/pallas_gather.py:79", "B": B, "L": L, "W": W,
-        "elem_bytes": es, "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
-        "device_ms": device_ms, "library_device_ms": library_device_ms,
-        "host_us_per_call": host_us, "library_host_us_per_call": library_host_us,
-        "role": role, "path": path,
+        "elem_bytes": es, "max_abs_err": float(max_err), **times,
+        "bound_ms": bound, "bound_by": bound_by, "role": role, "path": path,
     }
+
+
+def _kernel_times(label: str, kern, plain, lib, match: str, host_calls: int,
+                  one_kernel: bool = False) -> dict:
+    """A gather-like kernel's figures on its inputs: CUDA-event ms per call
+    of the wrapper, of its plain version and of the library call
+    (GATHER_TIMED_LAUNCHES calls each, after a warm-up); the kernel's and
+    the library call's self device time per launch (torch.profiler; the
+    kernel's names contain `match`); and the host's us per call of the
+    wrapper and of the library call (`host_calls` calls, the clock read
+    before the synchronisation).  With one_kernel, the trace's counts go
+    into the figures (`trace_calls`, the kernel launches it saw in
+    `trace_kernel_launches`, every other device op in `trace_other_ops`),
+    and the case fails unless it saw no other op and no more launches than
+    calls: each call is one launch and nothing else."""
+    from nanosim_tpu_torch.ops.cuda_build import time_ms
+
+    times = {"ms": time_ms(kern, GATHER_TIMED_LAUNCHES),
+             "plain_ms": time_ms(plain, GATHER_TIMED_LAUNCHES),
+             "library_ms": time_ms(lib, GATHER_TIMED_LAUNCHES)}
+    others = {}
+    times["device_ms"], seen = _profiled_device_ms(kern, GATHER_TIMED_LAUNCHES,
+                                                   lambda key: match in key, others)
+    times["library_device_ms"], lib_seen = _profiled_device_ms(lib, GATHER_TIMED_LAUNCHES)
+    times["host_us_per_call"] = _host_us_per_call(kern, host_calls)
+    times["library_host_us_per_call"] = _host_us_per_call(lib, host_calls)
+    if seen != GATHER_TIMED_LAUNCHES:
+        log(f"{label}: the trace shows {seen} kernel launches of "
+            f"{GATHER_TIMED_LAUNCHES} (the library call: {lib_seen})")
+    if one_kernel:
+        times.update(trace_calls=GATHER_TIMED_LAUNCHES, trace_kernel_launches=seen,
+                     trace_other_ops=sum(others.values()))
+        if others:
+            fail(f"{label}: the wrapper ran device ops besides its kernel: {others}")
+        if seen > GATHER_TIMED_LAUNCHES:
+            fail(f"{label}: {seen} kernel launches in {GATHER_TIMED_LAUNCHES} calls")
+    return times
+
+
+def _times_text(t: dict, bound: float, bound_by: str) -> str:
+    return (f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f} ms, torch.gather "
+            f"{t['library_ms']:.4f} ms, bound {bound:.4f} ms by {bound_by}, "
+            f"{t['ms'] / bound:.1f}x the bound); device {_fmt_ms(t['device_ms'])} against "
+            f"torch.gather's {_fmt_ms(t['library_device_ms'])} (profiler); host "
+            f"{t['host_us_per_call']:.2f} us per call against torch.gather's "
+            f"{t['library_host_us_per_call']:.2f} us")
 
 
 def _fmt_ms(ms):
@@ -671,20 +698,23 @@ def _fmt_ns(ns):
 PROFILE_TRIES = 3  # traces taken before a device time is "not measured"
 
 
-def _profiled_device_ms(fn, n: int, match=None):
+def _profiled_device_ms(fn, n: int, match=None, others=None):
     """Self device time per launch of the kernels whose name `match`
     accepts (every device kernel when it is None) over n calls of fn, from
     torch.profiler: (ms per launch or None when the trace shows none,
-    launches seen).  The tracer drops some kernel records (a K4 trace of 100
-    launches has shown 68), and now and then all of a short window's: the
-    mean is over the launches seen, and a trace that shows none is taken
-    again, up to PROFILE_TRIES times."""
+    launches seen).  `others`, a dict, gets the count of every other device
+    op the trace shows, by name.  The tracer drops some kernel records (a K4
+    trace of 100 launches has shown 68), and now and then all of a short
+    window's: the mean is over the launches seen, and a trace that shows
+    none is taken again, up to PROFILE_TRIES times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
+        if others is not None:
+            others.clear()  # the counts of the trace that is returned
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -697,6 +727,8 @@ def _profiled_device_ms(fn, n: int, match=None):
             if us > 0 and (match is None or match(e.key)):
                 total_us += us
                 count += e.count
+            elif us > 0 and others is not None:
+                others[e.key] = others.get(e.key, 0) + e.count
         if count:
             return total_us / 1e3 / count, count
     return None, 0
@@ -728,7 +760,6 @@ def phase_hp_kernels(prefix: str, circ_ref: str):
 
     from nanosim_tpu_torch.io.genome import PackedGenome
     from nanosim_tpu_torch.ops import apply_errors, assemble_cuda, gather_cuda, homopolymer, rng
-    from nanosim_tpu_torch.ops.cuda_build import time_ms
     from nanosim_tpu_torch.profiles import profile
     from nanosim_tpu_torch.sim import genome_mode
 
@@ -783,33 +814,34 @@ def phase_hp_kernels(prefix: str, circ_ref: str):
         if max_err != 0:
             fail(f"assemble_rolls B={B} l_out={l_out}: kernel differs from its plain version "
                  f"(max abs err {max_err})")
+        del got
         # what this run's data needs: one 16-bit element read per position
         # below the lane's total, every output position written once, 13
         # bytes of per-lane scalars
         n_read = int(total.clamp(0, l_out).long().sum())
         bound, bound_by = _bound_ms(2 * n_read + 2 * B * l_out + 13 * B, 0, 0)
-        ms = time_ms(lambda: assemble_cuda.assemble_rolls(*args), TIMED_LAUNCHES)
-        plain_ms = time_ms(lambda: assemble_cuda.assemble_rolls_plain(*args), TIMED_LAUNCHES)
         # the library yardstick: the one torch.gather of the one-gather
         # formulation, its concatenated input and int64 index made outside
         parts = torch.cat([mid, ht], dim=1)
         idx64 = torch.arange(l_out, device=dev)[None, :].expand(B, l_out).clamp_max(
             parts.shape[1] - 1).contiguous()
-        library_ms = time_ms(lambda: torch.gather(parts, 1, idx64), TIMED_LAUNCHES)
-        del parts, idx64
+        label = f"assemble_rolls B={B} l_out={l_out}"
+        times = _kernel_times(label, lambda: assemble_cuda.assemble_rolls(*args),
+                              lambda: assemble_cuda.assemble_rolls_plain(*args),
+                              lambda: torch.gather(parts, 1, idx64), "assemble_kernel",
+                              GATHER_TIMED_LAUNCHES, one_kernel=True)
+        del parts, idx64, want
         results.append({
             "name": "assemble_rolls", "route": "cuda",
             "source": "nanosim_tpu_torch/csrc/assemble.cu",
             "replaces": "nanosim_tpu/ops/pallas_assemble.py:93", "B": B, "l_cap": l_cap,
             "ht_cap": ht_cap, "l_out": l_out, "positions_read": n_read,
-            "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms, "role": role,
-            "path": "-hp" if role else "",
+            "max_abs_err": float(max_err), **times, "bound_ms": bound, "bound_by": bound_by,
+            "role": role, "path": "-hp" if role else "",
         })
         print(f"kernel assemble_rolls: B={B} l_cap={l_cap} ht_cap={ht_cap} l_out={l_out} "
               f"({n_read} positions below total, {int(is_rev.sum())} reversed lanes) exact; "
-              f"{ms:.4f} ms (plain {plain_ms:.4f} ms, torch.gather {library_ms:.4f} ms, bound "
-              f"{bound:.4f} ms by {bound_by}, {ms / bound:.1f}x the bound)", flush=True)
+              f"{_times_text(times, bound, bound_by)}", flush=True)
     return results
 
 

@@ -1,5 +1,4 @@
-// Read assembly: head | mutated middle | tail per lane, strand flip included,
-// one CUDA thread per output position.
+// Read assembly: head | mutated middle | tail per lane, strand flip included.
 //
 // Replaces the JAX package's TPU kernel ops/pallas_assemble.py::assemble_rolls
 // (kernel _kernel).  Inputs are packed 16-bit base|class values (ASCII base in
@@ -28,13 +27,30 @@
 // there is no roll, no scratch row, no second pass and no restriction on the
 // batch size.
 //
-// What bounds it on an H100: bytes.  Per output position it reads one 2-byte
-// element and writes one; the per-lane scalars are 13 bytes.  One block
-// covers 1024 consecutive positions of one lane (blockIdx.y is the lane),
-// each thread four of them at a stride of 256: a warp's stores are 64
-// contiguous bytes, and its loads are contiguous too (ascending on forward
-// lanes, descending on reversed ones) except where a warp straddles the
-// head/middle or middle/tail boundary.
+// What bounds it on an H100: bytes.  Per output position below the lane's
+// total it reads one 2-byte element, and it writes every output position
+// once; the per-lane scalars are 13 bytes.  More than half of the output is
+// zero fill past total at the `-hp` path's shape.  One block takes one lane,
+// and its threads read the lane's four scalars once; then each thread takes
+// groups of 8 consecutive output positions and writes each group as one
+// 16-byte vector.  A group wholly past total is stored as zeros with no
+// load; a group below it reads its 8 elements through the read-only cache
+// (a lane's reads are near-contiguous, forward or mirrored).  All index
+// arithmetic is 32-bit, and the complement is branch-free (A^T and C^G
+// differ in one xor mask each).  The positions of a row before its first
+// 16-byte aligned address and after its last whole group take a scalar
+// loop, so any l_out and any output offset work.
+//
+// Measured on an NVIDIA H100 80GB HBM3 (700 W) at the `-hp` path's shape
+// (B = 2,048, l_cap = 17,664, ht_cap = 1,024, l_out = 19,456; bound 0.0336
+// ms): 0.0469-0.0470 ms on the device, 0.72 of the bound, where the first
+// design (a 2-D grid of 1,024 positions a block, scalar 2-byte loads and
+// stores) took 0.095-0.100 ms.  A variant that first copied the lane's
+// middle and head/tail row into shared memory (TMA bulk copies completing
+// on an mbarrier) took 0.0453-0.0456 ms, and 0.0457-0.0459 ms in the same
+// runs where it read device memory instead; it was removed, as 1-3% did
+// not pay for a second fetch path and its limits on shared memory
+// (PERF.md).
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface
 // (no PyTorch headers) and bound with ctypes; the launcher returns
@@ -46,58 +62,72 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 4;
-constexpr int kCols = kThreads * kPerThread;  // positions per block
+constexpr int kGroup = 8;  // positions a 16-byte vector holds
 
 // A<->T, C<->G on the low byte; anything else, and the high byte, unchanged
-__device__ __forceinline__ uint16_t complement_low_byte(uint16_t v) {
-  const uint16_t base = v & 0xFFu;
-  uint16_t comp = base;
-  if (base == 'A') comp = 'T';
-  else if (base == 'T') comp = 'A';
-  else if (base == 'C') comp = 'G';
-  else if (base == 'G') comp = 'C';
-  return static_cast<uint16_t>((v & 0xFF00u) | comp);
+__device__ __forceinline__ uint32_t complement_low_byte(uint32_t v) {
+  const uint32_t b = v & 0xFFu;
+  const uint32_t flip = (b == 'A' || b == 'T') ? 21u : ((b == 'C' || b == 'G') ? 4u : 0u);
+  return v ^ flip;
 }
 
-__global__ void assemble_kernel(const uint16_t* __restrict__ mid,   // [B, l_cap]
-                                int64_t l_cap,
-                                const uint16_t* __restrict__ ht,    // [B, ht_cap]
-                                int64_t ht_cap,
-                                const int32_t* __restrict__ head,   // [B]
-                                const int32_t* __restrict__ l_new,  // [B]
-                                const int32_t* __restrict__ total,  // [B]
-                                const uint8_t* __restrict__ is_rev, // [B]
-                                int64_t l_out,
-                                uint16_t* __restrict__ out) {       // [B, l_out]
-  const int64_t b = blockIdx.y;
-  const uint16_t* mrow = mid + b * l_cap;
-  const uint16_t* hrow = ht + b * ht_cap;
+struct Lane {
+  const uint16_t* __restrict__ mid;  // the lane's rows
+  const uint16_t* __restrict__ ht;
+  int32_t h, n, t;  // head, l_new, total
+  bool rev;
+  int32_t l_cap, parts;
+};
+
+// output position j of the lane, 0 at and past total
+__device__ __forceinline__ uint32_t element(const Lane& ln, int32_t j) {
+  if (j >= ln.t) return 0u;
+  const int32_t jj = ln.rev ? ln.t - 1 - j : j;
+  // index into the concatenation [mid | ht], clipped to it
+  int32_t idx = (jj >= ln.h && jj < ln.h + ln.n) ? jj - ln.h
+                                                  : (jj < ln.h ? ln.l_cap + jj : ln.l_cap + jj - ln.n);
+  idx = idx < 0 ? 0 : (idx >= ln.parts ? ln.parts - 1 : idx);
+  const uint32_t v = idx < ln.l_cap ? __ldg(ln.mid + idx) : __ldg(ln.ht + (idx - ln.l_cap));
+  return ln.rev ? complement_low_byte(v) : v;
+}
+
+__global__ void __launch_bounds__(kThreads) assemble_kernel(
+    const uint16_t* __restrict__ mid,    // [B, l_cap]
+    int32_t l_cap,
+    const uint16_t* __restrict__ ht,     // [B, ht_cap]
+    int32_t ht_cap,
+    const int32_t* __restrict__ head,    // [B]
+    const int32_t* __restrict__ l_new,   // [B]
+    const int32_t* __restrict__ total,   // [B]
+    const uint8_t* __restrict__ is_rev,  // [B]
+    int32_t l_out,
+    uint16_t* __restrict__ out) {        // [B, l_out]
+  const size_t b = blockIdx.x;
+  const Lane ln{mid + b * l_cap, ht + b * ht_cap, __ldg(head + b), __ldg(l_new + b),
+                __ldg(total + b), __ldg(is_rev + b) != 0, l_cap, l_cap + ht_cap};
   uint16_t* orow = out + b * l_out;
-  const int64_t h = head[b];
-  const int64_t n = l_new[b];
-  const int64_t t = total[b];
-  const bool rev = is_rev[b] != 0;
-  const int64_t parts = l_cap + ht_cap;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kCols + threadIdx.x;
+
+  // positions [0, a0) before the first 16-byte aligned address of the row,
+  // [a0, a0 + 8 * nv) as vectors, the rest after them
+  const int32_t a0 = static_cast<int32_t>(
+      ((16u - (reinterpret_cast<uintptr_t>(orow) & 15u)) & 15u) / 2u);
+  const int32_t nv = a0 < l_out ? (l_out - a0) / kGroup : 0;
+  for (int32_t g = threadIdx.x; g < nv; g += kThreads) {
+    const int32_t j0 = a0 + kGroup * g;
+    uint4 o = make_uint4(0u, 0u, 0u, 0u);
+    if (j0 < ln.t) {
+      uint32_t v[kGroup];
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int64_t j = j0 + k * kThreads;
-    if (j >= l_out) continue;
-    uint16_t v = 0;
-    if (j < t) {
-      const int64_t jj = rev ? t - 1 - j : j;
-      // index into the concatenation [mid | ht], clipped to it
-      int64_t idx;
-      if (jj >= h && jj < h + n) idx = jj - h;
-      else if (jj < h) idx = l_cap + jj;
-      else idx = l_cap + jj - n;
-      idx = idx < 0 ? 0 : (idx >= parts ? parts - 1 : idx);
-      v = idx < l_cap ? __ldg(mrow + idx) : __ldg(hrow + (idx - l_cap));
-      if (rev) v = complement_low_byte(v);
+      for (int k = 0; k < kGroup; ++k) v[k] = element(ln, j0 + k);
+      o = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16, v[6] | v[7] << 16);
     }
-    orow[j] = v;
+    *reinterpret_cast<uint4*>(orow + j0) = o;
   }
+  const int32_t lo = a0 < l_out ? a0 : l_out;
+  for (int32_t j = threadIdx.x; j < lo; j += kThreads)
+    orow[j] = static_cast<uint16_t>(element(ln, j));
+  for (int32_t j = a0 + kGroup * nv + threadIdx.x; j < l_out; j += kThreads)
+    orow[j] = static_cast<uint16_t>(element(ln, j));
 }
 
 }  // namespace
@@ -107,12 +137,15 @@ extern "C" int launch_assemble(const void* mid, int64_t l_cap, const void* ht, i
                                const void* is_rev, int B, int64_t l_out, void* out,
                                void* stream) {
   if (B <= 0 || l_out <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>((l_out + kCols - 1) / kCols),
-                  static_cast<unsigned>(B));
-  assemble_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(mid), l_cap, static_cast<const uint16_t*>(ht), ht_cap,
+  // 32-bit positions within a lane: the concatenation and the output row fit
+  if (l_cap + ht_cap >= (int64_t{1} << 31) - kThreads * kGroup ||
+      l_out >= (int64_t{1} << 31) - kThreads * kGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  assemble_kernel<<<static_cast<unsigned>(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(mid), static_cast<int32_t>(l_cap),
+      static_cast<const uint16_t*>(ht), static_cast<int32_t>(ht_cap),
       static_cast<const int32_t*>(head), static_cast<const int32_t*>(l_new),
-      static_cast<const int32_t*>(total), static_cast<const uint8_t*>(is_rev), l_out,
-      static_cast<uint16_t*>(out));
+      static_cast<const int32_t*>(total), static_cast<const uint8_t*>(is_rev),
+      static_cast<int32_t>(l_out), static_cast<uint16_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

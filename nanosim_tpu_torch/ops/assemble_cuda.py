@@ -22,9 +22,7 @@ import ctypes
 import torch
 
 from . import seqops
-from .cuda_build import KernelLibrary
-
-MAX_LANES = 65535  # the kernel's grid puts the lane on blockIdx.y
+from .cuda_build import KernelLibrary, current_raw_stream
 
 
 def _bind(lib):
@@ -66,33 +64,40 @@ def assemble_rolls(packed_mid: torch.Tensor, packed_ht: torch.Tensor, head: torc
                    l_out: int) -> torch.Tensor:
     """packed_mid [B, l_cap] and packed_ht [B, ht_cap] int16 base|class,
     head/l_new/total [B] int32, is_rev [B] bool -> [B, l_out] int16: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors.
+
+    On the card the call runs one device kernel and nothing else: the output
+    is allocated uninitialised and the bool strand flags are passed as the
+    bytes they are (0 or 1)."""
     if not packed_mid.is_cuda:
         return assemble_rolls_plain(packed_mid, packed_ht, head, l_new, total, is_rev, l_out)
     args = (packed_mid, packed_ht, head, l_new, total, is_rev)
-    if any(a.device != packed_mid.device for a in args):
+    dev = packed_mid.get_device()
+    if any(a.get_device() != dev for a in args[1:]):
         raise ValueError("assemble_rolls: the inputs lie on different devices")
-    if packed_mid.dtype != torch.int16 or packed_ht.dtype != torch.int16:
+    if packed_mid.dtype is not torch.int16 or packed_ht.dtype is not torch.int16:
         raise ValueError(f"assemble_rolls: needs int16 packed values, got {packed_mid.dtype} "
                          f"and {packed_ht.dtype}")
-    if any(a.dtype != torch.int32 for a in (head, l_new, total)) or is_rev.dtype != torch.bool:
+    if (head.dtype is not torch.int32 or l_new.dtype is not torch.int32
+            or total.dtype is not torch.int32 or is_rev.dtype is not torch.bool):
         raise ValueError("assemble_rolls: needs int32 head, l_new, total and bool is_rev")
-    B = packed_mid.shape[0]
-    if (packed_mid.dim() != 2 or packed_ht.dim() != 2 or packed_ht.shape[0] != B
-            or any(a.shape != (B,) for a in (head, l_new, total, is_rev))):
+    mshape, hshape = packed_mid.shape, packed_ht.shape
+    if len(mshape) != 2 or len(hshape) != 2 or hshape[0] != mshape[0]:
         raise ValueError("assemble_rolls: shapes are not [B, l_cap], [B, ht_cap] and [B]")
-    l_cap, ht_cap = packed_mid.shape[1], packed_ht.shape[1]
-    if B > MAX_LANES or l_cap == 0 or ht_cap == 0:
-        raise ValueError(f"assemble_rolls: B={B} (at most {MAX_LANES}), l_cap={l_cap}, "
-                         f"ht_cap={ht_cap} (at least 1 each)")
-    lib = LIBRARY.load()
-    mid, ht, head, l_new, total = (a.contiguous() for a in args[:5])
-    rev8 = is_rev.to(torch.uint8).contiguous()
-    out = torch.empty((B, l_out), dtype=torch.int16, device=mid.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(mid.device).cuda_stream)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    rc = lib.launch_assemble(ptr(mid), l_cap, ptr(ht), ht_cap, ptr(head), ptr(l_new),
-                             ptr(total), ptr(rev8), B, l_out, ptr(out), stream)
+    B, l_cap, ht_cap = mshape[0], mshape[1], hshape[1]
+    lane = (B,)
+    if head.shape != lane or l_new.shape != lane or total.shape != lane or is_rev.shape != lane:
+        raise ValueError("assemble_rolls: shapes are not [B, l_cap], [B, ht_cap] and [B]")
+    if l_cap == 0 or ht_cap == 0 or l_out < 0:
+        raise ValueError(f"assemble_rolls: l_cap={l_cap}, ht_cap={ht_cap} (at least 1 each), "
+                         f"l_out={l_out} (at least 0)")
+    launch = LIBRARY.load().launch_assemble  # typed when the library loads
+    mid, ht, head, l_new, total, is_rev = (a if a.is_contiguous() else a.contiguous()
+                                           for a in args)
+    out = mid.new_empty((B, l_out))
+    rc = launch(mid.data_ptr(), l_cap, ht.data_ptr(), ht_cap, head.data_ptr(), l_new.data_ptr(),
+                total.data_ptr(), is_rev.data_ptr(), B, l_out, out.data_ptr(),
+                current_raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"assemble kernel launch failed: cudaError {rc}")
     assemble_rolls.launches += 1

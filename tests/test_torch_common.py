@@ -23,6 +23,19 @@ torch.set_num_threads(1)
 # card-only tests (which import this module) also run where JAX is absent.
 
 
+class OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card: the wrapper takes its card
+    path, and must refuse it before it builds or launches anything."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def on_card(t):
+    return torch.Tensor._make_subclass(OnCard, t)
+
+
 def make_model(dirpath: str, **kw) -> str:
     """A synthetic model directory (the JAX package's fixture writer)."""
     from nanosim_tpu.profiles import fixtures as jax_fixtures

@@ -12,6 +12,8 @@ import torch
 
 from nanosim_tpu_torch.ops import gather_cuda
 
+from test_torch_common import on_card
+
 
 def _inputs(B, PB, L, seed):
     """Packed rows and near-contiguous source indices (each lane's output
@@ -21,7 +23,7 @@ def _inputs(B, PB, L, seed):
     packed = rs.integers(0, 256, (B, PB), dtype=np.uint8)
     drift = np.cumsum(rs.integers(-1, 2, (B, L)), axis=1)
     src = rs.integers(-8, 64, (B, 1)) + np.arange(L)[None, :] + drift
-    src[:, :3] = [-5, 4 * PB + 7, 4 * PB - 1]
+    src[:, :3] = np.array([-5, 4 * PB + 7, 4 * PB - 1])[:L]
     return torch.from_numpy(packed), torch.from_numpy(src.astype(np.int32))
 
 
@@ -39,22 +41,79 @@ def test_plain_gather_on_cpu_matches_numpy():
     assert gather_cuda.gather_codes.launches == before
 
 
+def _refused_code_inputs():
+    """(packed, src) pairs the code gather's card path must refuse, by name."""
+    packed, src = _inputs(4, 50, 60, seed=13)
+    return {
+        "int8 packed": (packed.to(torch.int8), src),
+        "int16 packed": (packed.to(torch.int16), src),
+        "int64 src": (packed, src.long()),
+        "batch mismatch": (packed[:3], src),
+        "rank 1": (packed[0], src[0]),
+        "empty row": (packed[:, :0], src),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_refused_code_inputs()))
+def test_code_gather_card_path_refuses_before_building(case):
+    """On the card path the wrapper checks types, ranks and the batch before
+    it loads the library: each refused input raises ValueError and nothing
+    is counted as launched."""
+    packed, src = _refused_code_inputs()[case]
+    before = gather_cuda.gather_codes.launches
+    with pytest.raises(ValueError, match="gather_codes"):
+        gather_cuda.gather_codes(on_card(packed), on_card(src))
+    assert gather_cuda.gather_codes.launches == before
+
+
+# (B, PB, L, seed): a ragged shape; a small one; rows whose length is not a
+# multiple of 16, so that a thread's 16 flat positions straddle two rows
+# (and, with L < 16, several); one lane; more lanes than a grid's y extent
+CODE_SHAPES = ((37, 770, 3000, 2), (3, 5, 17, 3), (37, 400, 1531, 4), (9, 3, 7, 5),
+               (5, 2, 1, 6), (1, 800, 3000, 7), (1, 4, 13, 8), (70000, 6, 20, 9))
+
+
 @pytest.mark.gpu
 def test_gather_kernel_matches_plain_on_card():
     """The CUDA kernel equals its plain PyTorch version on the card, exactly,
-    at a ragged shape (B=37, L=3,000, PB=770) and a small one."""
+    at every shape of CODE_SHAPES (indices out of the row at both ends), also
+    with the index and the packed rows one element past an aligned address
+    (contiguous slices of larger tensors)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the gather kernel has no CPU mode")
     dev = torch.device("cuda")
-    for B, PB, L, seed in ((37, 770, 3000, 2), (3, 5, 17, 3)):
+    for B, PB, L, seed in CODE_SHAPES:
         packed, src = (t.to(dev) for t in _inputs(B, PB, L, seed))
-        before = gather_cuda.gather_codes.launches
-        got = gather_cuda.gather_codes(packed, src)
-        want = gather_cuda.gather_codes_plain(packed, src)
-        torch.cuda.synchronize()
-        assert gather_cuda.gather_codes.launches == before + 1
-        assert got.dtype == torch.uint8 and got.shape == (B, L)
-        assert torch.equal(got, want)
+        s1 = torch.empty(B * L + 1, dtype=torch.int32, device=dev)[1:].view(B, L)
+        s1.copy_(src)
+        p1 = torch.empty(B * PB + 1, dtype=torch.uint8, device=dev)[1:].view(B, PB)
+        p1.copy_(packed)
+        for pk, sx in ((packed, src), (packed, s1), (p1, src)):
+            before = gather_cuda.gather_codes.launches
+            got = gather_cuda.gather_codes(pk, sx)
+            want = gather_cuda.gather_codes_plain(pk, sx)
+            torch.cuda.synchronize()
+            assert gather_cuda.gather_codes.launches == before + 1
+            assert got.dtype == torch.uint8 and got.shape == (B, L)
+            assert torch.equal(got, want), (B, PB, L)
+
+
+@pytest.mark.gpu
+def test_code_gather_wrapper_refuses_what_the_kernel_does_not_take():
+    """On the card the light launch path keeps every check: a wrong type, a
+    batch mismatch, a wrong rank, an empty row and tensors on two devices
+    raise, and launch nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: on the CPU the wrapper runs the plain version")
+    dev = torch.device("cuda")
+    bad = [tuple(t.to(dev) for t in pair) for pair in _refused_code_inputs().values()]
+    packed, src = _inputs(4, 50, 60, seed=13)
+    bad.append((packed, src.to(dev)))
+    before = gather_cuda.gather_codes.launches
+    for p_, s_ in bad:
+        with pytest.raises(ValueError):
+            gather_cuda.gather_codes(p_, s_)
+    assert gather_cuda.gather_codes.launches == before
 
 
 def _row_inputs(B, W, L, seed, dtype):

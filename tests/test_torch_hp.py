@@ -23,6 +23,7 @@ from nanosim_tpu.ops import apply_errors as japply
 from nanosim_tpu.ops import error_walk as jwalk
 from nanosim_tpu.ops import homopolymer as jhp
 from nanosim_tpu.ops import pallas_assemble, pallas_gather
+from nanosim_tpu.ops import window_gather
 from nanosim_tpu.ops import rng as jrng
 from nanosim_tpu.ops import tables as jtables
 from nanosim_tpu.profiles import fixtures as jfixtures
@@ -357,3 +358,48 @@ def test_assemble_rolls_plain_matches_pallas_interpret():
         jnp.asarray(mid), jnp.asarray(ht), jnp.asarray(head), jnp.asarray(l_new),
         jnp.asarray(total), jnp.asarray(is_rev), l_out, interpret=True))
     np.testing.assert_array_equal(got, pal)
+
+
+@pytest.mark.parametrize("B, PB, L, seed", [(8, 700, 2048, 21), (16, 330, 1024, 22)])
+def test_gather_codes_plain_matches_windowed_pallas_interpret(B, PB, L, seed):
+    """gather_codes on CPU tensors (its plain version) against the JAX
+    package's windowed TPU gather in interpret mode followed by the code's
+    bit extraction, as fused_read_v2 runs them: indices clipped to the row's
+    codes (lane 0 clamped at the row's start, lane 1 at its end), window
+    starts from window_starts, compared on the lanes it does not flag."""
+    rs = np.random.default_rng(seed)
+    packed = rs.integers(0, 256, (B, PB), dtype=np.uint8)
+    drift = np.cumsum(rs.integers(-1, 2, (B, L)), axis=1)
+    src = rs.integers(-40, 4 * PB - L, (B, 1)) + np.arange(L)[None, :] + drift
+    src[0] -= 600
+    src[1] += 4 * PB - int(src[1].min()) - L // 2
+    src = np.clip(src, 0, 4 * PB - 1).astype(np.int32)
+    assert (src[0] == 0).sum() > 100 and (src[1] == 4 * PB - 1).sum() > 100
+    ws, overflow = window_gather.window_starts(jnp.asarray(src), jnp.ones(src.shape, bool),
+                                               L // window_gather.TILE)
+    byte = np.asarray(window_gather.gather_bytes_windowed(
+        jnp.asarray(packed), jnp.asarray(src), ws, interpret=True))
+    want = ((byte >> ((src & 3) * 2)) & 3).astype(np.uint8)
+    kept = ~np.asarray(overflow)
+    assert kept[:2].all() and kept.sum() >= B - 2
+    got = gather_cuda.gather_codes(torch.from_numpy(packed), torch.from_numpy(src)).numpy()
+    np.testing.assert_array_equal(got[kept], want[kept])
+
+
+@pytest.mark.parametrize("strands", ["forward", "reverse", "mixed"])
+def test_assemble_rolls_plain_matches_pallas_interpret_by_strand(strands):
+    """assemble_rolls on CPU tensors (its plain version) against the Pallas
+    kernel in interpret mode for all-forward, all-reversed and mixed
+    batches, with lanes whose head is 0, whose tail is 0, with neither, and
+    one whose total is l_out."""
+    B, l_cap, ht_cap, l_out = 24, 200, 128, 320  # head + tail stay within the pool
+    mid, ht, head, l_new, total, is_rev = assemble_inputs(B, l_cap, ht_cap, l_out, seed=5)
+    assert head[0] == total[0] - l_new[0] == 0 and total[4] == l_out
+    is_rev = {"forward": np.zeros(B, bool), "reverse": np.ones(B, bool), "mixed": is_rev}[strands]
+    got = assemble_cuda.assemble_rolls(
+        *as_tensors(mid, ht, head, l_new, total, is_rev), l_out).numpy().view(np.uint16)
+    pal = np.asarray(pallas_assemble.assemble_rolls(
+        jnp.asarray(mid), jnp.asarray(ht), jnp.asarray(head), jnp.asarray(l_new),
+        jnp.asarray(total), jnp.asarray(is_rev), l_out, interpret=True))
+    np.testing.assert_array_equal(got, pal)
+    np.testing.assert_array_equal(got, assemble_numpy(mid, ht, head, l_new, total, is_rev, l_out))
