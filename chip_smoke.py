@@ -118,18 +118,37 @@ Phases (any failure exits non-zero, and no result line is printed):
    against its plain version at the experiment's shape (B=1,024, L=19,456,
    4,608 packed bytes) and at a ragged one, then every variant timed beside
    its bound, the plain version and one torch.gather, with the W4 coverage
-   check.
+   check;
+16. the metagenome at a small size, CUDA against CPU, byte-identical files of
+   both samples (three species, two samples, batch 64, so that the species
+   quota crosses batches): plain reads, `--chimeric` on the
+   host-reconstruction route and with NANOSIM_TPU_RECON=0, `--perfect` and
+   `-hp -k 6`;
+17. the metagenome path at full width, the JAX package's metagenome
+   configuration (bench.py:339-391: three species of two linear 8 Mb
+   chromosomes, the bench model with segment mean 1.3, abundances 50/30/20,
+   `--chimeric`, batch 512), 10,000 reads, FASTQ, counters zeroed just
+   before and read just after: K1 and K2 must have launched, with 0 packed
+   spills and 0 checksum-fallback lanes, matching record counts, reads of
+   more than one segment, ref_base checked on 200 one-segment records (by
+   `<species>-<chrom>`), each species' share of reference bases within 5
+   points of the abundance file; a traced same-seed rerun byte-identical
+   (idle share, device ops per batch, the host seconds of the species
+   assignment); NANOSIM_TPU_RECON=0 at 2,000 reads equal to Route A's files,
+   with K4 launched.
 
 The line before the last is the kernels' JSON record: every kernel at every
 shape a path gives it, with that path's launches (`path`: main, circular,
 -hp, chimeric, chimeric circular, chimeric -hp, transcriptome, direct RNA,
 and `experiments` for the whole-step variants of K6 and K7 and the
-instances of K8); the line before it holds the other shapes and the other
-experiment variants.  The last line is {"ok": true, "device": {...}}.
-`--quick` runs only the builds and phases 12-15 (a short check while
-working on the newest slice); `--kernels` only the builds and the kernels at
-every path's shapes (phases 3 and 13, without the walk experiments), driving
-no path.
+instances of K8); the metagenome path gives K1 and K2 the chimeric path's
+shapes and K4 (under NANOSIM_TPU_RECON=0) the chimeric circular path's, so
+those rows also carry `launches_metagenome` and `launches_metagenome_recon0`;
+the line before it holds the other shapes and the other experiment variants.
+The last line is {"ok": true, "device": {...}}.  `--quick` runs only the
+builds and phases 12-16 (a short check while working on the newest
+slices); `--kernels` only the builds and the kernels at every path's shapes
+(phases 3 and 13, without the walk experiments), driving no path.
 """
 
 import contextlib
@@ -2019,9 +2038,248 @@ def run_trx_slice(d: str, card: str):
     return rows, paths, rates
 
 
+# --- the metagenome slice --------------------------------------------------------
+
+# the JAX package's metagenome configuration (bench.py:339-391): three species
+# of two linear 8 Mb chromosomes each (48 Mb), the bench model with segment
+# mean 1.3, abundances 50/30/20, `--chimeric`, batch 512
+META_SPECIES = ("Escherichia_coli", "Bacillus_subtilis", "Salmonella_enterica")
+META_ABUN = (50, 30, 20)
+META_CHROM = 8_000_000
+N_META = 10000
+N_META_RECON0 = 2000  # NANOSIM_TPU_RECON=0 against Route A
+META_FILES = ("_aligned_reads.fastq", "_aligned_error_profile", "_unaligned_reads.fastq")
+
+
+def make_meta_fixture(d: str, sizes, mean_len: float, sd_len: float, n_kde: int,
+                      segment_mean: float, numbers, abundances, hp_bias: float = 0.0) -> dict:
+    """Model, one FASTA per species (`sizes[i]` its chromosome lengths), the
+    genome list, a dna-type list making every chromosome linear, and an
+    abundance matrix with one column per entry of `numbers`."""
+    from nanosim_tpu_torch.profiles import error_model, fixtures
+
+    os.makedirs(d, exist_ok=True)
+    prefix = os.path.join(d, "training")
+    fixtures.make_model_dir(prefix, mean_read_len=mean_len, sd_read_len=sd_len,
+                            n_kde_points=n_kde)
+    error_model.write_chimeric_info(prefix + "_chimeric_info", segment_mean, 0.2)
+    glist, dl, abun = (os.path.join(d, f) for f in ("genome_list.tsv", "dna_types.tsv",
+                                                    "abun.tsv"))
+    with open(glist, "w") as gf, open(dl, "w") as df:
+        for i, (sp, sz) in enumerate(zip(META_SPECIES, sizes)):
+            path = os.path.join(d, f"{sp}.fa")
+            fixtures.make_reference_fasta(path, sz, seed=20 + i, name_prefix=f"{sp[:3]}chr",
+                                          hp_bias=hp_bias)
+            gf.write(f"{sp}\t{path}\n")
+            for ci in range(len(sz)):
+                df.write(f"{sp}\t{sp[:3]}chr{ci + 1}\tlinear\n")
+    with open(abun, "w") as f:
+        f.write("Species\t" + "\t".join(str(n) for n in numbers) + "\n")
+        for sp, row in zip(META_SPECIES, abundances):
+            f.write(sp.replace("_", " ") + "\t" + "\t".join(str(a) for a in row) + "\n")
+    return {"prefix": prefix, "glist": glist, "dl": dl, "abun": abun}
+
+
+def _run_meta(fx: dict, out: str, batch: int, device: str, seed: int = SEED, **kw):
+    from nanosim_tpu_torch.sim.run_metagenome import simulate_metagenome
+
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    return simulate_metagenome(fx["glist"], fx["abun"], fx["dl"], fx["prefix"], out,
+                               fastq=True, seed=seed, batch=batch, device=device, **kw)
+
+
+def _meta_shas(out: str, samples, perfect: bool = False) -> list:
+    return [sha(f"{out}_{s}{suf}") for s in samples for suf in META_FILES
+            if not (perfect and suf.startswith("_unaligned"))]
+
+
+def phase_meta_cuda_vs_cpu(d: str):
+    """Phase 16: the metagenome at a small size (three species, two samples of
+    300 and 200 reads, batch 64, so that the species quota crosses batches),
+    CUDA against CPU: byte-identical files for plain reads, `--chimeric` on
+    Route A and with NANOSIM_TPU_RECON=0, `--perfect` and `-hp -k 6`."""
+    fx = make_meta_fixture(os.path.join(d, "meta_small"),
+                           [[150000], [100000, 40000], [120000]], 700, 250, 300, 1.9,
+                           (300, 200), ((60, 20), (30, 50), (10, 30)), hp_bias=0.5)
+    samples = ("sample0", "sample1")
+    for label, recon, kw in (
+            ("metagenome", None, {}),
+            ("metagenome --chimeric", None, dict(chimeric=True)),
+            ("metagenome --chimeric NANOSIM_TPU_RECON=0", "0", dict(chimeric=True)),
+            ("metagenome --perfect", None, dict(perfect=True)),
+            ("metagenome -hp -k 6", None, dict(kmer_bias=HP_K, homopolymer=True))):
+        outs = {}
+        with recon_env(recon):
+            for dev in ("cpu", "cuda"):
+                out = os.path.join(d, "meta_small", label.replace(" ", "_"), dev, "sim")
+                _run_meta(fx, out, 64, dev, **kw)
+                outs[dev] = _meta_shas(out, samples, kw.get("perfect", False))
+        if outs["cpu"] != outs["cuda"]:
+            fail(f"small {label} run: CUDA output differs from the CPU output: {outs}")
+        print(f"small {label} run: CUDA files byte-identical to the CPU path (2 samples)",
+              flush=True)
+
+
+@contextlib.contextmanager
+def timed_species_assignment(acc: list):
+    """Counts the batches and adds the host seconds of
+    run_metagenome.assign_species_batch to acc = [calls, seconds]."""
+    from nanosim_tpu_torch.sim import run_metagenome
+
+    raw = run_metagenome.assign_species_batch
+
+    def timed(*a, **kw):
+        t0 = time.time()
+        try:
+            return raw(*a, **kw)
+        finally:
+            acc[0] += 1
+            acc[1] += time.time() - t0
+
+    run_metagenome.assign_species_batch = timed
+    try:
+        yield
+    finally:
+        run_metagenome.assign_species_batch = raw
+
+
+def _segment_bases_by_species(names) -> dict:
+    """Reference bases per species over every segment of the aligned reads'
+    names (`<sp>-<chrom>_<pos>[;gap_<len>;<sp>-...]_aligned_<i>..._<head>_
+    <m1;m2;...>_<tail>`): what the species quota counts."""
+    out = {sp: 0 for sp in META_SPECIES}
+    for nm in names:
+        comps = [c for c in nm.split("_aligned_")[0].split(";") if not c.startswith("gap_")]
+        mids = nm.split("_")[-2].split(";")
+        if len(comps) != len(mids):
+            fail(f"malformed metagenome read name {nm!r}")
+        for c, m in zip(comps, mids):
+            out[c.split("-", 1)[0]] += int(m)
+    return out
+
+
+def phase_metagenome_path(d: str, card: str):
+    """Phase 17: the metagenome path at full width (the JAX package's
+    metagenome configuration): `simulate_metagenome(..., chimeric=True,
+    fastq=True, device="cuda")`, counters zeroed just before and read just
+    after.  K1 and K2 must have launched, with 0 packed spills and 0
+    checksum-fallback lanes; record counts must match; reads of more than one
+    segment present; ref_base checked on 200 one-segment records; the species
+    share of reference bases within 5 points of the abundance file; a traced
+    same-seed rerun byte-identical (idle share, device ops per batch, host
+    seconds of the species assignment); then NANOSIM_TPU_RECON=0 at 2,000
+    reads must equal Route A's files, with K4 launched."""
+    import dataclasses
+
+    import torch
+
+    from nanosim_tpu_torch.io.genome import MetagenomeSet
+    from nanosim_tpu_torch.profiles import profile
+
+    t0 = time.time()
+    fx = make_meta_fixture(os.path.join(d, "meta"), [[META_CHROM] * 2] * 3, 8000, 2200, 2000,
+                           CHI_SEGMENT_MEAN, (N_META,), tuple((a,) for a in META_ABUN))
+    print(f"metagenome fixture ({len(META_SPECIES)} species x 2 x {META_CHROM} bp) in "
+          f"{time.time() - t0:.1f}s", flush=True)
+    prof = profile.load_profile(fx["prefix"], mode="metagenome", chimeric=True, fastq=True)
+    n_al, n_un = (x[0] for x in profile.split_aligned_unaligned([N_META], prof.aligned_rate,
+                                                                False))
+    out1 = os.path.join(d, "meta", "run1", "sim")
+    acc = [0, 0.0]
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with timed_species_assignment(acc):
+        counts = _run_meta(fx, out1, CHI_BATCH, "cuda", chimeric=True)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = read_counters()
+    print(f"metagenome path: {counts} in {dt:.2f}s -> {N_META / dt:.1f} reads/s on {card}; "
+          f"{acc[0]} batches, assign_species_batch {acc[1]:.3f}s of the host's time "
+          f"({1e3 * acc[1] / max(acc[0], 1):.2f} ms a batch); launches {launches}", flush=True)
+    missing = [k for k in ("aligned", "unaligned") if launches[k] == 0]
+    if missing:
+        fail(f"{missing} kernels were not launched on the metagenome path: {launches}")
+    if launches["packed_spills"] or launches["checksum_fallback_lanes"]:
+        fail(f"metagenome path: {launches['packed_spills']} packed spills, "
+             f"{launches['checksum_fallback_lanes']} checksum-fallback lanes")
+    pre = out1 + "_sample0"
+    names = read_names(pre + "_aligned_reads.fastq")
+    nu = len(read_names(pre + "_unaligned_reads.fastq"))
+    if (len(names), nu) != (counts["sample0"], n_un) or counts["sample0"] != n_al:
+        fail(f"read counts {(len(names), nu)} != requested {(n_al, n_un)}: {counts}")
+    n_chi = sum(1 for nm in names if "_chimeric_" in nm)
+    if n_chi == 0:
+        fail("no chimeric read on the metagenome path")
+    bases = _segment_bases_by_species(names)
+    total = sum(bases.values())
+    share = {sp: 100 * b / total for sp, b in bases.items()}
+    print(f"metagenome path: {n_chi} of {len(names)} aligned reads have more than one "
+          f"segment; reference bases by species " + ", ".join(
+              f"{sp} {share[sp]:.2f}% (file {a}%)" for sp, a in zip(META_SPECIES, META_ABUN)),
+          flush=True)
+    for sp, a in zip(META_SPECIES, META_ABUN):
+        if abs(share[sp] - a) > 5:
+            fail(f"{sp}: {share[sp]:.2f}% of the bases against {a}% in the abundance file")
+    # ref_base on one-segment records: the names' chromosomes are <species>-<chrom>
+    mset = MetagenomeSet.from_genome_list(fx["glist"], fx["dl"])
+    g = dataclasses.replace(mset.packed, names=[
+        f"{mset.species_names[sp]}-{nm}" for sp, nm in zip(mset.species_of_chrom,
+                                                            mset.packed.names)])
+    check_error_profile(pre + "_aligned_error_profile", g)
+    print("metagenome path: ref_base checked on 200 one-segment records", flush=True)
+
+    out2 = os.path.join(d, "meta", "run2", "sim")
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    acc2 = [0, 0.0]
+    t0 = time.time()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof_t, timed_species_assignment(acc2):
+        _run_meta(fx, out2, CHI_BATCH, "cuda", chimeric=True)
+        torch.cuda.synchronize()
+    dt2 = time.time() - t0
+    if _meta_shas(out1, ("sample0",)) != _meta_shas(out2, ("sample0",)):
+        fail("metagenome path: second run with the same seed differs")
+    print(f"metagenome path: second run byte-identical ({N_META / dt2:.1f} reads/s, traced; "
+          f"assign_species_batch {acc2[1]:.3f}s)", flush=True)
+    busy, n_ops = report_trace(prof_t, dt2)
+    print(f"metagenome path: {n_ops / max(acc2[0], 1):.0f} device ops per batch "
+          f"({acc2[0]} batches of {CHI_BATCH}, the unaligned pass included)", flush=True)
+
+    outs, recon0 = {}, None
+    with open(fx["abun"], "w") as f:
+        f.write(f"Species\t{N_META_RECON0}\n" + "".join(
+            f"{sp.replace('_', ' ')}\t{a}\n" for sp, a in zip(META_SPECIES, META_ABUN)))
+    for recon in ("0", None):
+        out = os.path.join(d, "meta", f"recon{recon or ''}", "sim")
+        zero_counters()
+        with recon_env(recon):
+            t0 = time.time()
+            _run_meta(fx, out, CHI_BATCH, "cuda", chimeric=True)
+            torch.cuda.synchronize()
+            dt3 = time.time() - t0
+        got = read_counters()
+        if got["checksum_fallback_lanes"] != 0:
+            fail(f"{got['checksum_fallback_lanes']} lanes failed the host replay's checksum")
+        if recon == "0":
+            recon0 = got
+            if any(got[k] == 0 for k in ("gather_u8", "aligned", "unaligned")):
+                fail(f"a kernel was not launched on the metagenome NANOSIM_TPU_RECON=0 run: "
+                     f"{got}")
+        print(f"metagenome NANOSIM_TPU_RECON={recon or 'unset'}: {N_META_RECON0} reads in "
+              f"{dt3:.2f}s -> {N_META_RECON0 / dt3:.1f} reads/s on {card}; launches {got}",
+              flush=True)
+        outs[recon] = _meta_shas(out, ("sample0",))
+    if outs["0"] != outs[None]:
+        fail(f"metagenome NANOSIM_TPU_RECON=0 files differ from Route A's: {outs}")
+    print("metagenome NANOSIM_TPU_RECON=0: files byte-identical to Route A", flush=True)
+    return launches, recon0, N_META / dt, N_META / dt2
+
+
 def report_trace(prof, wall_s: float):
     """Device busy time (sum of kernel and copy self times on the one stream
-    in use) against the run's wall time, and the top device consumers."""
+    in use) against the run's wall time, and the top device consumers.
+    Returns (busy seconds, device ops)."""
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", None)
@@ -2036,6 +2294,7 @@ def report_trace(prof, wall_s: float):
           flush=True)
     for dev_us, count, key in rows[:12]:
         print(f"  {dev_us / 1e3:10.2f} ms  x{count:<7d} {key[:90]}", flush=True)
+    return busy_s, sum(r[1] for r in rows)
 
 
 def _path_launches(k: dict, launches: dict) -> int:
@@ -2061,10 +2320,13 @@ def _launches_by_name(k: dict, launches: dict) -> int:
     return _path_launches(k, launches)
 
 
-def attach_launches(cases, by_path: dict, recon0_of: dict, trx_paths: dict):
+def attach_launches(cases, by_path: dict, recon0_of: dict, trx_paths: dict, meta_of=None):
     """Give every kernel row of a path its launches on that path's run (and
     on the RECON=0 run beside it); fail for a recorded row whose kernel that
-    run did not launch at its shape."""
+    run did not launch at its shape.  `meta_of` maps a path whose shapes the
+    metagenome path shares to {key: the metagenome run's launches}: the
+    metagenome's Route A has the chimeric path's shapes, its RECON=0 run the
+    chimeric circular path's."""
     for k in cases:
         if not k["role"]:
             continue
@@ -2073,6 +2335,11 @@ def attach_launches(cases, by_path: dict, recon0_of: dict, trx_paths: dict):
             k["launches_recon0"] = _path_launches(k, recon0_of[k["path"]])
         if k["role"] == "record" and k["launches"] == 0:
             fail(f"{k['name']} was not launched on the {k['path']} path")
+        for key, got in (meta_of or {}).get(k["path"], {}).items():
+            k[key] = _path_launches(k, got)
+            if k["role"] == "record" and k[key] == 0:
+                fail(f"{k['name']} was not launched at its {k['path']} shape on the "
+                     f"metagenome path ({key})")
         if k["path"] in trx_paths:
             # every transcriptome path's launches of this kernel, at any shape
             k["launches_by_transcriptome_path"] = {
@@ -2084,9 +2351,9 @@ def main():
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--quick", action="store_true",
-                    help="a check of the newest slice only (builds, the windowed-gather "
-                         "experiment, the transcriptome and --perfect phases); without it every "
-                         "phase runs")
+                    help="a check of the newest slices only (builds, the windowed-gather "
+                         "experiment, the transcriptome and --perfect phases, the metagenome "
+                         "CUDA-against-CPU runs); without it every phase runs")
     ap.add_argument("--kernels", action="store_true",
                     help="the kernels only (builds, then K1-K5 at every path's shapes against "
                          "their plain versions, timed), driving no path")
@@ -2105,6 +2372,7 @@ def main():
         if args.quick:
             phase_gather_window(card)
             trx_rows, trx_paths, _ = run_trx_slice(d, card)
+            phase_meta_cuda_vs_cpu(d)
             attach_launches(trx_rows, trx_paths, {}, trx_paths)
             print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
                                           for k in trx_rows]}))
@@ -2163,12 +2431,16 @@ def main():
         trx_rows, trx_paths, trx_rates = run_trx_slice(d, card)
         cases += trx_rows
         experiments += phase_gather_window(card)
+        phase_meta_cuda_vs_cpu(d)
+        meta_l, meta_recon0_l, mrate1, mrate2 = phase_metagenome_path(d, card)
     if chi_l["packed_spills"] != 0:
         fail(f"{chi_l['packed_spills']} chimeric batches spilled their packed walk lanes")
     by_path = {"main": main_l, "circular": circ_l, "-hp": hp_l, "chimeric": chi_l,
                "chimeric circular": chic_l, "chimeric -hp": chih_l, **trx_paths}
     recon0_of = {"circular": recon0_l, "-hp": hp_recon0_l, "chimeric circular": chi_recon0_l}
-    attach_launches(cases, by_path, recon0_of, trx_paths)
+    meta_of = {"chimeric": {"launches_metagenome": meta_l},
+               "chimeric circular": {"launches_metagenome_recon0": meta_recon0_l}}
+    attach_launches(cases, by_path, recon0_of, trx_paths, meta_of)
     cases += experiments
     print(f"main path reads/s: {rate1:.1f}, {rate2:.1f} traced; circular path reads/s: "
           f"{crate1:.1f}, {crate2:.1f} traced; -hp path reads/s: {hrate1:.1f}, {hrate2:.1f} "
@@ -2182,6 +2454,8 @@ def main():
     print("transcriptome paths reads/s ({}): {}".format(card, ", ".join(
         f"{label} {r1:.1f}" + (f" ({r2:.1f} traced)" if r2 else "")
         for label, (r1, r2) in trx_rates.items())), flush=True)
+    print(f"metagenome path reads/s (batch {CHI_BATCH}, --chimeric): {mrate1:.1f}, "
+          f"{mrate2:.1f} traced ({card})", flush=True)
     print(json.dumps({"kernel_cases": [k for k in cases if k["role"] != "record"]}))
     print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
                                   for k in cases if k["role"] == "record"]}))

@@ -1,8 +1,8 @@
 """Command dispatcher: `python -m nanosim_tpu_torch <command> ...`
 
 Commands:
-  simulate       read simulation (genome and transcriptome modes; runs on a
-                 CUDA card)
+  simulate       read simulation (genome, transcriptome and metagenome
+                 modes; runs on a CUDA card)
 
 The JAX package's other commands (characterize, quantify_paf) are not ported
 yet.

@@ -7,8 +7,10 @@ Ported so far: the genome sub-command with linear and circular DNA
 homopolymer mode (`-hp -k`), chimeric reads (`--chimeric`), perfect reads
 (`--perfect`) and `--resume`; the transcriptome sub-command (cDNA, direct RNA
 with `--uracil`, polyA tails, intron retention, `-hp -k`, `--perfect`,
-`--resume`).  The metagenome sub-command, and the options not ported yet
-(-med/-sd, -x, multi-host), say so and exit non-zero.
+`--resume`); the metagenome sub-command (multi-species abundance with the
+species-quota feedback, `--abun_var`, `--chimeric`, `--perfect`, `-hp -k`,
+`--resume`).  The options not ported yet (-med/-sd, -x, multi-host) say so
+and exit non-zero.
 """
 
 from __future__ import annotations
@@ -19,9 +21,6 @@ import sys
 from textwrap import dedent
 
 from . import __version__
-
-NOT_PORTED_MODES = ("metagenome",)
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
@@ -100,8 +99,34 @@ def build_parser() -> argparse.ArgumentParser:
                    help="continue an interrupted run from its checkpoint")
     t.add_argument("--batch", type=int, default=256)
 
-    for mode in NOT_PORTED_MODES:
-        sub.add_parser(mode, help=f"{mode} mode (not ported yet)")
+    m = sub.add_parser("metagenome", help="Run the simulator on metagenome mode")
+    m.add_argument("-gl", "--genome_list", required=True)
+    m.add_argument("-a", "--abun", required=True)
+    m.add_argument("-dl", "--dna_type_list", default=None)
+    m.add_argument("-c", "--model_prefix", default="training")
+    m.add_argument("-o", "--output", default="simulated")
+    m.add_argument("-max", "--max_len", type=float, default=float("inf"))
+    m.add_argument("-min", "--min_len", type=int, default=50)
+    m.add_argument("-med", "--median_len", type=int, default=None)
+    m.add_argument("-sd", "--sd_len", type=float, default=None)
+    m.add_argument("--seed", type=int, default=None)
+    m.add_argument("-hp", "--homopolymer", action="store_true", default=False)
+    m.add_argument("-k", "--KmerBias", type=int, default=None)
+    m.add_argument("-s", "--strandness", type=float, default=None)
+    m.add_argument("--perfect", action="store_true", default=False)
+    m.add_argument("--abun_var", nargs="+", type=float, default=None)
+    m.add_argument("--fastq", action="store_true", default=False)
+    m.add_argument("--chimeric", action="store_true", default=False)
+    m.add_argument("-t", "--num_threads", type=int, default=1)
+    m.add_argument("--num_hosts", type=int, default=1,
+                   help="shard the run over N cooperating host processes")
+    m.add_argument("--host_id", type=int, default=0,
+                   help="this process's rank in a multi-host run")
+    m.add_argument("--coordinator", default=None,
+                   help="coordinator address of a multi-host run (not ported yet)")
+    m.add_argument("--resume", action="store_true", default=False,
+                   help="continue an interrupted run from its checkpoint")
+    m.add_argument("--batch", type=int, default=256)
 
     return parser
 
@@ -128,8 +153,6 @@ def _not_ported(what: str):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED_MODES:
-        _not_ported(f"simulate {argv[0]}")
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.mode is None:
@@ -144,6 +167,9 @@ def main(argv=None):
     _validate_common(args, parser)
     if args.mode == "transcriptome":
         _transcriptome(args, seed)
+        return
+    if args.mode == "metagenome":
+        _metagenome(args, seed)
         return
     median = args.median_len
     sd = args.sd_len
@@ -212,6 +238,44 @@ def _transcriptome(args, seed: int):
         polya=args.polya,
         basecaller=args.basecaller,
         uracil=args.uracil,
+        min_len=args.min_len,
+        max_len=args.max_len,
+        seed=seed,
+        batch=args.batch,
+        resume=args.resume,
+    )
+
+
+def _metagenome(args, seed: int):
+    if (args.median_len and not args.sd_len) or (args.sd_len and not args.median_len):
+        sys.stderr.write("\nPlease provide both mean and standard deviation of read length!\n")
+        sys.exit(1)
+    if args.median_len and args.sd_len and args.chimeric:
+        sys.stderr.write("\nLognormal distributed reads cannot be chimeric!\n")
+        sys.exit(1)
+    if args.perfect and args.chimeric:
+        print("\nPerfect reads cannot be chimeric\n")
+        sys.exit(1)
+    for flag, what in ((args.median_len is not None, "-med/-sd"),
+                       (args.num_hosts > 1, "--num_hosts")):
+        if flag:
+            _not_ported(what)
+
+    from .sim.run_metagenome import simulate_metagenome
+
+    simulate_metagenome(
+        args.genome_list,
+        args.abun,
+        args.dna_type_list,
+        args.model_prefix,
+        args.output,
+        perfect=args.perfect,
+        fastq=args.fastq,
+        chimeric=args.chimeric,
+        kmer_bias=args.KmerBias if args.homopolymer else None,
+        homopolymer=args.homopolymer,
+        strandness=args.strandness,
+        abun_var=args.abun_var,
         min_len=args.min_len,
         max_len=args.max_len,
         seed=seed,

@@ -1,9 +1,9 @@
-"""Chimeric-read simulation (the genome aligned pass with `--chimeric`).
+"""Chimeric-read simulation (genome + metagenome aligned passes).
 
 The reference draws a Geometric segment count per read, synthesizes each
 aligned segment with the full error pipeline, joins segments with
 unaligned-error "gap" sequences, and applies one head/tail + strand decision
-to the whole read (simulator.py:1266-1454).
+to the whole read (simulator.py:1266-1454 genome, :814-1040 metagenome).
 
 Device mapping: segments are extra lanes — the walk/extraction/mutation
 pipeline runs once over a flattened [S * B] batch (inactive segments are dead
@@ -25,9 +25,9 @@ and gap walks with part-keyed streams, checks each against the device
 checksum and emits with the C++ emitter.  Circular DNA, NANOSIM_TPU_RECON=0
 and homopolymer mode run the read-emitting program and transfer the reads.
 
-The metagenome variant of this program (per-segment species, the lognormal
-median/sd lengths and perfect reads) is not part of the genome CLI's
-`--chimeric` and comes with the metagenome mode.
+The metagenome runs this program with per-segment species (sim/run_metagenome.py;
+a plain metagenome run is a one-segment batch), also with perfect reads.  The
+lognormal median/sd lengths are not ported yet.
 """
 
 from __future__ import annotations
@@ -161,6 +161,7 @@ def chimeric_batch(
     genome: extract.GenomeDevice,
     tables: SimTables,
     *,
+    species: Optional[torch.Tensor] = None,  # [B, S] int32 per-segment species (metagenome)
     l_cap: int,
     l_out: int,
     ht_cap: int,
@@ -186,12 +187,12 @@ def chimeric_batch(
     # spill->unpacked-re-run path deterministically; None = mean+10-sigma)
     packed_cap: Optional[int] = None,
 ) -> ChimericBatchOut:
-    if metagenome or perfect or median_len is not None:
+    if median_len is not None:
         raise NotImplementedError(
-            "chimeric_batch: metagenome=True, perfect=True and median_len belong to the "
-            "metagenome slice and are not ported yet")
+            "chimeric_batch: median_len (the lognormal -med/-sd lengths) is not ported yet")
     assert emit_reads or kmer_bias is None, (
-        "meta-only chimeric program supports the plain aligned path (not -hp)"
+        "meta-only chimeric program supports the plain aligned and perfect "
+        "paths (not -hp)"
     )
     B = slots.shape[0]
     S = s_max
@@ -221,7 +222,7 @@ def chimeric_batch(
     # count ever exceeds K (vanishingly unlikely at K=2B: mean ~1.33B,
     # sd ~0.6*sqrt(B)), packed_spill is set and the host re-runs the batch
     # through this same program unpacked — acceptance stays slot-pure.
-    packed = packed_walks and not emit_reads and S > 1
+    packed = packed_walks and not emit_reads and not perfect and S > 1
     spill = torch.zeros((), dtype=torch.bool, device=dev)
     if packed:
         # capacity = mean + 10 sigma of the active-pair count (sum of B
@@ -266,21 +267,48 @@ def chimeric_batch(
         return x.reshape(n, B).T
 
     # --- per-segment aligned lengths (iid conditional on the reference's
-    # filter (0, max]; simulator.py:832-850) ---
+    # filter: (0, max] aligned, [min, max] perfect; simulator.py:832-850) ---
     ref_c = _kde_draw(sk_seg, rng.SITE_REF_LENGTH, tables.kde_aligned, 2)
-    ref_f, ref_ok = _first_valid(ref_c, (ref_c > 0) & (ref_c <= f32(max_len)))
+    if perfect:
+        ref_f, ref_ok = _first_valid(ref_c, (ref_c >= min_len) & (ref_c <= f32(max_len)))
+    else:
+        ref_f, ref_ok = _first_valid(ref_c, (ref_c > 0) & (ref_c <= f32(max_len)))
     m_ref_lane = torch.where(seg_live, ref_f.to(_I32).clamp(0, l_cap), 0)
     seg_len_ok = seg_unpack(torch.where(seg_live, ref_ok & (ref_f <= f32(l_cap)), True), True)
     seg_mref_init = seg_unpack(m_ref_lane, 0)
 
-    # --- head/tail ---
-    remainder, head, tail, ht_ok = draw_ht(sk, tables, ht_cap)
+    # --- head/tail (perfect reads have none; simulator.py:900-901) ---
+    if perfect:
+        zero_b = torch.zeros(B, dtype=_I32, device=dev)
+        remainder, head, tail, ht_ok = zero_b, zero_b, zero_b, torch.ones(B, dtype=torch.bool,
+                                                                          device=dev)
+    else:
+        remainder, head, tail, ht_ok = draw_ht(sk, tables, ht_cap)
 
     # --- segment error walks on the flattened batch ---
-    walk = error_walk.error_walk(
-        sk_seg, m_ref_lane, tables.first_match, tables.match_markov,
-        tables.mixtures, tables.trans, e_max,
-    )
+    if perfect:
+        # no walk: zero events, the middle is the drawn length (never packed)
+        E1 = 8
+        zeros_e = torch.zeros((SB, E1), dtype=_I32, device=dev)
+        zeros_l = torch.zeros(SB, dtype=_I32, device=dev)
+        walk = error_walk.WalkResult(
+            events_pos2x=zeros_e,
+            events_type=zeros_e,
+            events_len=zeros_e,
+            events_valid=torch.zeros((SB, E1), dtype=torch.bool, device=dev),
+            middle_ref=m_ref_lane,
+            l_new=m_ref_lane,
+            overflow=torch.zeros(SB, dtype=torch.bool, device=dev),
+            n_events=zeros_l,
+            ecnt_mis=zeros_l,
+            ecnt_ins=zeros_l,
+            ecnt_match=m_ref_lane,
+        )
+    else:
+        walk = error_walk.error_walk(
+            sk_seg, m_ref_lane, tables.first_match, tables.match_markov,
+            tables.mixtures, tables.trans, e_max,
+        )
     seg_mref = per_slot(seg_unpack(walk.middle_ref, 0), S)  # [B, S]
     seg_lnew = per_slot(seg_unpack(torch.where(seg_live, walk.l_new, 0), 0), S)
     walk_ok = per_slot(seg_unpack(
@@ -292,7 +320,7 @@ def chimeric_batch(
 
     # --- gap lengths + gap synthesis (simulator.py:1298-1299, 1552-1568) ---
     G = max(S - 1, 1)
-    if S > 1:
+    if S > 1 and not perfect:
         gap_f = _kde_draw(sk_gap, rng.SITE_GAP, tables.kde_gap, 1)[:, 0]
         gap_ref = torch.where(gap_live, gap_f.clamp_min(0).to(_I32), 0)
         gap_ref = gap_ref.clamp_max(gap_cap)
@@ -301,10 +329,21 @@ def chimeric_batch(
             torch.where(gap_live, ~gwalk.overflow & (gwalk.l_new <= gap_cap), True), True
         ), S - 1).all(dim=1)
 
-        # gap extraction + mutation
-        g_chrom, g_pos, g_pos_ok = extract.sample_genome_positions(
-            sk_gap, gwalk.middle_ref, genome, circular_dna
-        )
+        # gap extraction + mutation; gap species is a UNIFORM random choice,
+        # not abundance-driven (extract_read with s=None, simulator.py:1556,
+        # 1704-1706)
+        if metagenome:
+            n_species = genome.chrom_start_of_species.shape[0] - 1
+            # one float32 uniform of fold_in(key, 1) per gap lane
+            u_sp = rng.uniform_per_slot(sk_gap, 1)
+            g_sp = torch.clamp_max((u_sp * n_species).to(_I32), n_species - 1)
+            g_chrom, g_pos, g_pos_ok = extract.sample_metagenome_positions(
+                sk_gap, g_sp, gwalk.middle_ref, genome
+            )
+        else:
+            g_chrom, g_pos, g_pos_ok = extract.sample_genome_positions(
+                sk_gap, gwalk.middle_ref, genome, circular_dna
+            )
         gap_ok &= per_slot(gap_unpack(
             torch.where(gap_live, g_pos_ok, True), True
         ), S - 1).all(dim=1)
@@ -363,8 +402,8 @@ def chimeric_batch(
         gap_middle = torch.zeros((B, G), dtype=_I32, device=dev)
         gap_cksum = torch.zeros((B, G), dtype=torch.int64, device=dev)
 
-    # --- total-length filter (simulator.py:1354-1368; genome mode does not
-    # count the gaps) ---
+    # --- total-length filter (simulator.py:1354-1368; metagenome includes
+    # gaps at :935-946, genome does not) ---
     total0 = remainder + seg_lnew.sum(dim=1, dtype=_I32)
     if count_gap_in_total:
         total0 = total0 + gap_lens.sum(dim=1, dtype=_I32)
@@ -378,9 +417,18 @@ def chimeric_batch(
     )
 
     # --- segment extraction ---
-    chrom_f, pos_f, pos_ok = extract.sample_genome_positions(
-        sk_seg, walk.middle_ref, genome, circular_dna
-    )
+    if metagenome:
+        if packed:
+            s_sp = species[src_c % B, src_c // B]
+        else:
+            s_sp = torch.cat([species[:, s] for s in range(S)], dim=0)
+        chrom_f, pos_f, pos_ok = extract.sample_metagenome_positions(
+            sk_seg, s_sp, walk.middle_ref, genome
+        )
+    else:
+        chrom_f, pos_f, pos_ok = extract.sample_genome_positions(
+            sk_seg, walk.middle_ref, genome, circular_dna
+        )
     valid &= per_slot(seg_unpack(torch.where(seg_live, pos_ok, True), True), S).all(dim=1)
     u_strand = rng.uniform_per_slot(sk, rng.SITE_STRAND)
     is_rev = u_strand > tables.strandness_rate
@@ -451,7 +499,7 @@ def chimeric_batch(
     ref_seg = seqops.resolve_iupac(ref_seg, su_iupac)
     del su_iupac
     ev_len_seg = walk.events_len
-    if kmer_bias is not None:
+    if kmer_bias is not None and not perfect:
         keep = homopolymer.suppress_hp_errors(
             ref_seg, walk.middle_ref, walk.events_pos2x, walk.events_type,
             ev_len_seg, walk.events_valid, kmer_bias,
@@ -469,7 +517,7 @@ def chimeric_batch(
     seg_read_prehp = seg_read
     seg_qclass, seg_read_len = gm.qclass, gm.read_len
     del gm
-    if kmer_bias is not None:
+    if kmer_bias is not None and not perfect:
         seg_read, seg_qclass, seg_read_len, hp_ok = homopolymer.resize_homopolymers(
             sk_seg, seg_read, seg_qclass, seg_read_len,
             tables.hp_breaks, tables.hp_vals,
@@ -619,11 +667,12 @@ def decode_chimeric_meta(meta: np.ndarray, S: int) -> dict:
 class ChimericReconHandle:
     """A dispatched meta-only chimeric batch."""
 
-    def __init__(self, meta_dev, slots, sim, seed):
+    def __init__(self, meta_dev, slots, sim, seed, species=None):
         self.meta_dev = meta_dev
         self.slots = slots
         self.sim = sim
         self.seed = seed
+        self.species = species  # [B, S] per-segment species (metagenome)
 
 
 class ChimericGenomeSimulator:
@@ -699,7 +748,7 @@ class ChimericGenomeSimulator:
             **{**self.kw, **overrides},
         )
 
-    def chimeric_meta_unpacked(self, slots, seed):
+    def chimeric_meta_unpacked(self, slots, seed, species=None):
         """Spill fallback: re-run a batch through the UNPACKED meta program.
         Only reachable when the batch's active segment count exceeded the
         packed lane capacity (P ~ 0 at 2B); per-slot results are identical

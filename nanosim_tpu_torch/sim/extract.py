@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..io.genome import PackedGenome
+from ..io.genome import MetagenomeSet, PackedGenome
 from ..ops import rng
 
 CHUNK = 256
@@ -37,6 +37,9 @@ class GenomeDevice:
     lengths: torch.Tensor  # [n_chrom] int64
     circular: torch.Tensor  # [n_chrom] bool
     genome_len: int
+    # metagenome extras (one species holding every chromosome for plain genomes)
+    species_of_chrom: torch.Tensor  # [n_chrom] int32
+    chrom_start_of_species: torch.Tensor  # [n_species + 1] int32
 
     @classmethod
     def from_packed(cls, g: PackedGenome, device) -> "GenomeDevice":
@@ -51,7 +54,19 @@ class GenomeDevice:
             lengths=torch.as_tensor(g.lengths, dtype=torch.int64, device=device),
             circular=torch.as_tensor(g.circular, dtype=torch.bool, device=device),
             genome_len=g.total_len,
+            species_of_chrom=torch.zeros(g.n_chrom, dtype=torch.int32, device=device),
+            chrom_start_of_species=torch.tensor([0, g.n_chrom], dtype=torch.int32,
+                                                device=device),
         )
+
+    @classmethod
+    def from_metagenome(cls, m: MetagenomeSet, device) -> "GenomeDevice":
+        gd = cls.from_packed(m.packed, device)
+        gd.species_of_chrom = torch.as_tensor(m.species_of_chrom, dtype=torch.int32,
+                                              device=device)
+        gd.chrom_start_of_species = torch.as_tensor(m.chrom_start_of_species,
+                                                    dtype=torch.int32, device=device)
+        return gd
 
 
 def sample_genome_positions(
@@ -118,6 +133,60 @@ def sample_transcript_positions(
     span0 = span.clamp_min(0)
     pos = torch.minimum((u * (span0 + 1)).to(torch.int64), span0)
     return pos, ok
+
+
+def sample_metagenome_positions(
+    slot_keys: torch.Tensor,  # [B, 2]
+    species: torch.Tensor,  # [B] int32
+    lengths: torch.Tensor,  # [B] int32
+    genome: GenomeDevice,
+    site: int = rng.SITE_SPECIES,
+):
+    """Metagenome extraction (simulator.py:1704-1747).
+
+    Choose a uniform chromosome of the species; if too short, fall back to a
+    uniform choice among longer chromosomes of the same species, else among
+    longer chromosomes anywhere.  Circular chromosomes start anywhere and
+    wrap; linear ones start in [0, len - length].
+
+    Returns (chrom [B] i32, local_pos [B] i64, ok [B] bool).
+    """
+    us = rng.uniform_f64(rng.site_keys(slot_keys, site), (3,))
+    u_chrom, u_fallback, u_pos = us[:, 0], us[:, 1], us[:, 2]
+    sp = species.long()
+    len64 = lengths.to(torch.int64)
+
+    cs = genome.chrom_start_of_species
+    lo = cs[sp]
+    n_of_sp = cs[sp + 1] - lo
+    chrom = lo + torch.minimum((u_chrom * n_of_sp).to(torch.int32), n_of_sp - 1)
+
+    fits = len64 <= genome.lengths[chrom.long()]
+
+    # Fallback: uniform among longer chromosomes, preferring the same species.
+    longer = len64[:, None] < genome.lengths[None, :]  # [B, C]
+    same_sp = genome.species_of_chrom[None, :] == species[:, None]
+    cand_same = longer & same_sp
+    cand_any = longer & ~same_sp
+    n_same = cand_same.sum(dim=1)
+    n_any = cand_any.sum(dim=1)
+    use_same = n_same > 0
+    cand = torch.where(use_same[:, None], cand_same, cand_any)
+    n_cand = torch.where(use_same, n_same, n_any)
+    kth = torch.minimum((u_fallback * n_cand).to(torch.int32), (n_cand - 1).clamp_min(0))
+    cum = torch.cumsum(cand, dim=1, dtype=torch.int32)
+    # argmax over an integer tensor: the FIRST chromosome whose running count
+    # passes kth (0 when there is no candidate, as argmax over all-false gives)
+    fb_chrom = (cum > kth[:, None]).to(torch.uint8).argmax(dim=1).to(torch.int32)
+    ok = fits | (n_cand > 0)
+    chrom = torch.where(fits, chrom, fb_chrom)
+
+    c = chrom.long()
+    clen = genome.lengths[c]
+    # circular: randint(0, len) inclusive; linear: randint(0, len - length)
+    span = torch.where(genome.circular[c], clen, clen - len64)
+    pos = torch.minimum((u_pos * (span + 1)).to(torch.int64), span)
+    return chrom, pos, ok
 
 
 def sample_uniform_chrom_positions(

@@ -668,30 +668,42 @@ class AsyncBatchWriter:
 
 
 class ChimericBatchWriter:
-    """Accept/number/emit a chimeric batch (genome mode).
+    """Accept/number/emit a chimeric batch (genome or metagenome).
 
-    Names: ';'-joined per-segment `<chrom>_<pos>` components, `_chimeric`
+    Names: ';'-joined per-segment `<chrom>_<pos>` components (metagenome
+    prefixes `<species>-` and interleaves `gap_<len>` components), `_chimeric`
     marker when > 1 segment, middle lengths joined with ';'
-    (simulator.py:1390-1402).
-
-    The metagenome parts of this writer (species-prefixed components,
-    `gap_<len>` components, the base-level species-quota feedback) come with
-    the metagenome mode and have no hook here yet.
+    (simulator.py:1390-1402, 966-984).
     """
 
-    def __init__(self, fastx: FastxWriter, error_log=None):
+    def __init__(self, fastx: FastxWriter, error_log=None, species_names=None,
+                 species_of_chrom=None, metagenome: bool = False, perfect: bool = False):
         self.fastx = fastx
         self.error_log = error_log
+        self.species_names = species_names
+        self.species_of_chrom = species_of_chrom
+        self.metagenome = metagenome
+        self.perfect = perfect
+        # base-level quota feedback for metagenome abundance accounting
+        self.species_bases = None
         from ..io.native import NativeEmitter
 
         self._emitter = NativeEmitter()
         if not self._emitter.available:
             raise RuntimeError("the chimeric writer needs native/fastwriter.cpp built with g++")
 
-    @staticmethod
-    def _name(g_names, idx: int, ns: int, chrom, pos, rev, head, mids, tail) -> str:
-        comps = [f"{g_names[chrom[s]]}_{pos[s]}" for s in range(ns)]
-        name = ";".join(comps) + f"_aligned_{idx}"
+    def _name(self, g_names, idx: int, ns: int, chrom, pos, rev, head, mids, tail,
+              gap_len) -> str:
+        comps = []
+        for s in range(ns):
+            comp = f"{g_names[chrom[s]]}_{pos[s]}"
+            if self.metagenome and self.species_names is not None:
+                comp = f"{self.species_names[self.species_of_chrom[chrom[s]]]}-{comp}"
+            comps.append(comp)
+            if self.metagenome and s < ns - 1:
+                comps.append(f"gap_{gap_len[s]}")
+        kind = "perfect" if self.perfect else "aligned"
+        name = ";".join(comps) + f"_{kind}_{idx}"
         if ns > 1:
             name += "_chimeric"
         name += "_R" if rev else "_F"
@@ -706,28 +718,43 @@ class ChimericBatchWriter:
             # packed lane capacity exceeded (vanishingly rare): identical
             # per-slot results via the unpacked program
             RUN_STATS.packed_spills += 1
-            d = decode_chimeric_meta(sim.chimeric_meta_unpacked(h.slots, h.seed), S)
+            d = decode_chimeric_meta(sim.chimeric_meta_unpacked(h.slots, h.seed, h.species), S)
         return d
 
     def prepare_recon_chimeric(self, sim, h, accepted_so_far: int, quota: int):
-        """Decode a meta-only chimeric batch and select its accepted lanes —
-        the cheap sequential head of a batch.  The expensive replay+emit
-        (`_write_recon_chimeric` with `prepared=`) can then run AFTER the
-        next batch has been assigned and dispatched, overlapping host
-        emission with device compute."""
+        """Decode a meta-only chimeric batch, select its accepted lanes, and
+        advance the species-quota feedback — the cheap sequential head of a
+        batch.  The expensive replay+emit (`_write_recon_chimeric` with
+        `prepared=`) can then run AFTER the next batch has been assigned and
+        dispatched, overlapping host emission with device compute."""
         d = self._decode_meta(sim, h)
         lanes = np.nonzero(d["valid"])[0][: quota - accepted_so_far]
+        self._advance_species_quota(d, lanes)
         return {"d": d, "lanes": lanes, "start": accepted_so_far}
+
+    def _advance_species_quota(self, d, lanes):
+        """Add the accepted lanes' segment middles to their species' base
+        totals (metagenome; `species_bases` is None otherwise)."""
+        if self.species_bases is None or len(lanes) == 0:
+            return
+        S = d["chrom"].shape[1]
+        n_seg_l = d["n_seg"][lanes]
+        chrom_l = d["chrom"][lanes]
+        sp_rs = np.asarray(self.species_of_chrom)[chrom_l]
+        seg_mask = np.arange(S)[None, :] < n_seg_l[:, None]
+        np.add.at(self.species_bases, sp_rs[seg_mask],
+                  d["seg_mref"][lanes][seg_mask])
 
     def _write_recon_chimeric(self, sim, h, accepted_so_far: int, quota: int,
                               lanes=None, start=None, prepared=None) -> int:
-        """Host-reconstruct + emit a meta-only chimeric batch (genome mode):
+        """Host-reconstruct + emit a meta-only chimeric batch (genome or metagenome):
         part-keyed C++ walk replays (checksum-verified) + C++ splicing of
         head | segments | gaps | tail."""
         from ..ops import rng as rng_mod
 
         S = sim.s_max
         G = max(S - 1, 1)
+        quota_done = prepared is not None
         if prepared is not None:
             d = prepared["d"]
             lanes = prepared["lanes"]
@@ -745,7 +772,8 @@ class ChimericBatchWriter:
 
         names = [
             self._name(g.names, start + rank, int(d["n_seg"][b]), d["chrom"][b], d["pos"][b],
-                       d["rev"][b], d["head"][b], d["seg_mref"][b], d["tail"][b])
+                       d["rev"][b], d["head"][b], d["seg_mref"][b], d["tail"][b],
+                       d["gap_len"][b])
             for rank, b in enumerate(lanes)
         ]
 
@@ -784,7 +812,7 @@ class ChimericBatchWriter:
                 "set NANOSIM_TPU_RECON=0 to fall back to device materialization"
             )
 
-        with_events = self.error_log is not None
+        with_events = self.error_log is not None and not self.perfect
         qt = None
         if sim.fastq:
             qd = sim.tables.qual
@@ -816,6 +844,8 @@ class ChimericBatchWriter:
         self.fastx.f.write(fastx_mv)
         if with_events:
             self.error_log.write_bytes(err_mv)
+        if not quota_done:
+            self._advance_species_quota(d, lanes)
         return k
 
     def write_batch(self, sim, out, accepted_so_far: int, quota: int,
@@ -848,6 +878,7 @@ class ChimericBatchWriter:
         n_seg = host(out.n_seg)
         seg_mref = host(out.seg_middle_ref)
         seg_off = host(out.seg_offset)
+        gap_len = host(out.gap_len)
         chrom = host(out.chrom)
         pos = host(out.local_pos)
         rev = host(out.is_reversed)
@@ -860,12 +891,14 @@ class ChimericBatchWriter:
         g = sim.genome_host
         B = out.valid.shape[0]
         k, S = seg_mref.shape
-        with_events = self.error_log is not None
+        with_events = self.error_log is not None and not self.perfect
         names = [
             self._name(g.names, accepted_so_far + r, int(n_seg[r]), chrom[r], pos[r], rev[r],
-                       head[r], seg_mref[r], tail[r])
+                       head[r], seg_mref[r], tail[r], gap_len[r])
             for r in range(k)
         ]
+        self._advance_species_quota({"chrom": chrom, "n_seg": n_seg, "seg_mref": seg_mref},
+                                    np.arange(k))
 
         # compact event rows: one per (accepted lane, active segment)
         seg_do = np.arange(S)[None, :] < n_seg[:, None]

@@ -200,6 +200,7 @@ class UnalignedSimulator:
         batch=256,
         uracil=False,
         transcriptome_mode=False,
+        genome_dev=None,
         device="cuda",
     ):
         if profile.kde_unaligned is None or profile.mix_params is None:
@@ -221,7 +222,10 @@ class UnalignedSimulator:
         # in the length cap.
         self.e_max = -(-(int(l_cap * 1.25) + 64) // 8) * 8
         self.tables = build_tables(profile, self.device)
-        self.genome_dev = extract.GenomeDevice.from_packed(genome, self.device)
+        # reuse an already-uploaded GenomeDevice (the metagenome runner
+        # shares its 48+ MB upload instead of paying it twice per run)
+        self.genome_dev = (genome_dev if genome_dev is not None
+                           else extract.GenomeDevice.from_packed(genome, self.device))
         self.uracil = uracil
         self.kw = dict(l_cap=l_cap, e_max=self.e_max, min_len=min_len, max_len=max_len,
                        fastq=fastq, circular_dna=circular_dna, uracil=uracil,

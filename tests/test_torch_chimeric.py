@@ -248,9 +248,11 @@ def test_emit_batch_matches_jax(model, kmer_bias):
 
 
 def test_not_ported_parameters_raise(model):
+    """The lognormal -med/-sd lengths are not ported: asking for them raises
+    (metagenome=True and perfect=True run since the metagenome slice)."""
     _, ts = _sims(model)
-    for kw in (dict(metagenome=True), dict(perfect=True), dict(median_len=5000.0, sd_len=1.0)):
-        with pytest.raises(NotImplementedError, match="metagenome"):
+    for kw in (dict(median_len=5000.0, sd_len=1.0),):
+        with pytest.raises(NotImplementedError, match="median_len"):
             _torch_batch(ts, _slots(), **kw)
 
 

@@ -199,3 +199,46 @@ def chimeric_share(prefix_out: str, fastq: bool):
     lines = read_file(path).split(b"\n")
     names = [n for n in (lines[0::4] if fastq else lines[0::2]) if n]
     return sum(1 for n in names if b"_chimeric_" in n), len(names)
+
+
+# --- `simulate metagenome` (tests/test_torch_metagenome*.py) ---
+
+META_SPECIES = ("Escherichia_coli", "Bacillus_subtilis", "Salmonella_enterica")
+
+
+def make_metagenome_fixture(d: str):
+    """The fixture of tests/test_metagenome.py: three species (Bacillus with
+    two chromosomes), a model with segment mean 1.6, a two-sample abundance
+    matrix (120 and 80 reads) and a dna-type list making every chromosome
+    linear.  Returns a namespace (d, prefix, glist, abun, dl, species)."""
+    import types
+
+    from nanosim_tpu.profiles import error_model, fixtures
+
+    prefix = os.path.join(d, "training")
+    fixtures.make_model_dir(prefix, mean_read_len=400, sd_read_len=120)
+    error_model.write_chimeric_info(prefix + "_chimeric_info", 1.6, 0.2)
+    species = list(META_SPECIES)
+    sizes = [[30000], [20000, 8000], [25000]]
+    gpaths = []
+    for i, (sp, sz) in enumerate(zip(species, sizes)):
+        p = os.path.join(d, f"{sp}.fa")
+        fixtures.make_reference_fasta(p, sz, seed=10 + i, name_prefix=f"{sp[:3]}chr")
+        gpaths.append(p)
+    glist = os.path.join(d, "genome_list.tsv")
+    with open(glist, "w") as f:
+        for sp, p in zip(species, gpaths):
+            f.write(f"{sp}\t{p}\n")
+    abun = os.path.join(d, "abun.tsv")
+    with open(abun, "w") as f:
+        f.write("Species\t120\t80\n")
+        f.write("Escherichia coli\t60\t20\n")
+        f.write("Bacillus subtilis\t30\t50\n")
+        f.write("Salmonella enterica\t10\t30\n")
+    dl = os.path.join(d, "dna_types.tsv")
+    with open(dl, "w") as f:
+        for sp, sz in zip(species, sizes):
+            for ci in range(len(sz)):
+                f.write(f"{sp}\t{sp[:3]}chr{ci + 1}\tlinear\n")
+    return types.SimpleNamespace(d=d, prefix=prefix, glist=glist, abun=abun, dl=dl,
+                                 species=species)
