@@ -40,13 +40,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    B = kg_cap = 512) and K4 on the segment and gap rows of the first
    read-emitting batch on the circular chromosome ([S*B, l_cap] and
    [(S-1)*B, gap_cap] bytes; 16-bit from the `-hp` batch), with both
-   batches' peak device memory.  Then the fixed-step walk experiments (K6,
-   K7) with the chimeric simulator's tables at 1,024 lanes: every variant
-   against its plain version at 256 steps, the whole step at 8,192 and 2,048
-   steps, the exact row-select variants against each other, and
-   walk_ablate.measure_step_costs (counters zeroed just before): ms per
-   launch and ns per lane-step for every variant and the differences
-   full - nothreefry, full - nodma, full - min on a line of their own;
+   batches' peak device memory.  Then the fixed-step walk experiments (K6
+   on its warp-per-lane kernel, K7 on the thread-per-lane one) with the
+   chimeric simulator's tables at 1,024 lanes: every variant against its
+   plain version at 256 steps (K6's also on 37 lanes), the whole step at
+   8,192 and 2,048 steps, K6's `full` against the thread-per-lane kernel's
+   (K7's `scan`) at 8,192 steps bit for bit, the exact row-select variants
+   against each other, and walk_ablate.measure_step_costs (counters zeroed
+   just before): ms per launch, ns per lane-step and per serial step for
+   every variant, the thread-per-lane `full` beside them, and the
+   differences that split a step (full - nothreefry, full - nodma,
+   full - onlymatch, onlymatch - min, full - min) on a line of their own;
 4. the CUDA path against the CPU path of the same program at a small size:
    byte-identical FASTQ and error-profile files (the CPU path is held
    byte-identical to the JAX package by the test suite), for linear DNA on
@@ -116,9 +120,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    files equal to Route A's;
 15. the windowed byte gather (K8, bench/gather_variants.py): every instance
    against its plain version at the experiment's shape (B=1,024, L=19,456,
-   4,608 packed bytes) and at a ragged one, then every variant timed beside
-   its bound, the plain version and one torch.gather, with the W4 coverage
-   check;
+   4,608 packed bytes: TMA bulk copies) and at a ragged one (B=37, L=3,000,
+   770 bytes: the threads' copies), then every instance timed beside its
+   bound, the plain version and one torch.gather (events, device time,
+   host us per call; device times only from a trace of 100 calls showing
+   one kernel a call), with the W4 coverage check;
 16. the metagenome at a small size, CUDA against CPU, byte-identical files of
    both samples (three species, two samples, batch 64, so that the species
    quota crosses batches): plain reads, `--chimeric` on the
@@ -148,7 +154,9 @@ the line before it holds the other shapes and the other experiment variants.
 The last line is {"ok": true, "device": {...}}.  `--quick` runs only the
 builds and phases 12-16 (a short check while working on the newest
 slices); `--kernels` only the builds and the kernels at every path's shapes
-(phases 3 and 13, without the walk experiments), driving no path.
+(phases 3 and 13, without the walk experiments), driving no path;
+`--experiments` only the builds and the measuring kernels (the walk
+experiments of phase 3, and phase 15).
 """
 
 import contextlib
@@ -274,11 +282,11 @@ def phase_build():
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         if spills:
             fail(f"{os.path.basename(lib.src)}: ptxas reports register spills: {spills[0]}")
-    # the code the compiler made for each instance of the experiments' kernel
+    # the code the compiler made for each instance of the experiments' kernels
     # (template arguments in the mangled name: threefry, error tables, match
-    # mode 0 none / 1 scan / 2 search / 3 global, store)
+    # mode 0 none / 1 scan / 2 search / 3 global, store; the warp kernel's GL, GM)
     for name, ops in sorted(cuda_build.sass_summary(walk_ablate.LIBRARY.path).items()):
-        tag = name[name.find("fixed_walk_kernel"):][:40]
+        tag = name[name.find("fixed_walk"):][:52]
         top = ", ".join(f"{k} {v}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:9])
         print(f"sass {tag}: {top}", flush=True)
 
@@ -671,8 +679,9 @@ def _kernel_times(label: str, kern, plain, lib, match: str, host_calls: int,
     before the synchronisation).  With one_kernel, the trace's counts go
     into the figures (`trace_calls`, the kernel launches it saw in
     `trace_kernel_launches`, every other device op in `trace_other_ops`),
-    and the case fails unless it saw no other op and no more launches than
-    calls: each call is one launch and nothing else."""
+    a device time counts only from a trace that shows exactly one launch a
+    call (else it is "not measured"), and the case fails if a trace shows
+    any other op or more launches than calls."""
     from nanosim_tpu_torch.ops.cuda_build import time_ms
 
     times = {"ms": time_ms(kern, GATHER_TIMED_LAUNCHES),
@@ -680,11 +689,12 @@ def _kernel_times(label: str, kern, plain, lib, match: str, host_calls: int,
              "library_ms": time_ms(lib, GATHER_TIMED_LAUNCHES)}
     others = {}
     times["device_ms"], seen = _profiled_device_ms(kern, GATHER_TIMED_LAUNCHES,
-                                                   lambda key: match in key, others)
-    times["library_device_ms"], lib_seen = _profiled_device_ms(lib, GATHER_TIMED_LAUNCHES)
+                                                   lambda key: match in key, others, one_kernel)
+    times["library_device_ms"], lib_seen = _profiled_device_ms(lib, GATHER_TIMED_LAUNCHES,
+                                                               exact=one_kernel)
     times["host_us_per_call"] = _host_us_per_call(kern, host_calls)
     times["library_host_us_per_call"] = _host_us_per_call(lib, host_calls)
-    if seen != GATHER_TIMED_LAUNCHES:
+    if seen != GATHER_TIMED_LAUNCHES or lib_seen != GATHER_TIMED_LAUNCHES:
         log(f"{label}: the trace shows {seen} kernel launches of "
             f"{GATHER_TIMED_LAUNCHES} (the library call: {lib_seen})")
     if one_kernel:
@@ -715,29 +725,36 @@ def _fmt_ns(ns):
 
 
 PROFILE_TRIES = 3  # traces taken before a device time is "not measured"
+TRACE_PAD_S = 0.02  # idle host time at each end of a trace window
 
 
-def _profiled_device_ms(fn, n: int, match=None, others=None):
+def _profiled_device_ms(fn, n: int, match=None, others=None, exact: bool = False):
     """Self device time per launch of the kernels whose name `match`
     accepts (every device kernel when it is None) over n calls of fn, from
-    torch.profiler: (ms per launch or None when the trace shows none,
-    launches seen).  `others`, a dict, gets the count of every other device
-    op the trace shows, by name.  The tracer drops some kernel records (a K4
-    trace of 100 launches has shown 68), and now and then all of a short
-    window's: the mean is over the launches seen, and a trace that shows
-    none is taken again, up to PROFILE_TRIES times."""
+    torch.profiler: (ms per launch or None, launches seen).  `others`, a
+    dict, gets the count of every other device op the trace shows, by name.
+    The tracer keeps only the device records that fall inside its window,
+    whose ends it takes from the host's clock: the window is padded with
+    idle time at both ends.  Without `exact`, the mean is over the launches
+    seen, and a trace that shows none is taken again, up to PROFILE_TRIES
+    times.  With `exact`, a trace counts only when it shows exactly n
+    launches (one a call); after PROFILE_TRIES traces that do not, the time
+    is None ("not measured") and the launches seen are the last trace's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    count = 0
     for _ in range(PROFILE_TRIES):
         if others is not None:
             others.clear()  # the counts of the trace that is returned
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
         total_us, count = 0.0, 0
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
@@ -748,9 +765,9 @@ def _profiled_device_ms(fn, n: int, match=None, others=None):
                 count += e.count
             elif us > 0 and others is not None:
                 others[e.key] = others.get(e.key, 0) + e.count
-        if count:
+        if count and (count == n or not exact):
             return total_us / 1e3 / count, count
-    return None, 0
+    return None, count
 
 
 def _host_us_per_call(fn, n: int = 1000) -> float:
@@ -970,16 +987,21 @@ def _experiment_bound(switches, n_t: int, nb: int, K: int, B: int, E: int, table
     return _bound_ms(n_bytes, ints * E * B, f32 * E * B)
 
 
+RAGGED_LANES = 37  # not a multiple of the warp-per-lane kernel's 8 lanes a block
+
+
 def phase_experiments(prefix: str, ref: str, card: str):
     """K6 and K7, the fixed-step walk experiments, with the tables of the
     chimeric simulator at batch 1,024 as the JAX package's scripts take them.
-    Every variant against its plain version at 256 steps; the whole step
+    Every variant against its plain version at 256 steps, and every K6
+    variant (the warp-per-lane kernel) also on 37 lanes; the whole step
     (`full`, and `scan` of the row-select experiment) at the scripts' step
-    counts (8,192 and 2,048), where the plain version is timed; the exact
-    row-select variants against each other.  Then, with the counters zeroed,
-    walk_ablate.measure_step_costs: ms per launch and ns per lane-step for
-    every variant, and the differences full - nothreefry, full - nodma,
-    full - min."""
+    counts (8,192 and 2,048), where the plain version is timed; K6's `full`
+    against the thread-per-lane kernel's (K7's `scan`) at 8,192 steps, bit for
+    bit; the exact row-select variants against each other.  Then, with the
+    counters zeroed, walk_ablate.measure_step_costs: ms per launch, ns per
+    lane-step and per serial step for every variant, the thread-per-lane
+    kernel's `full` beside them, and the differences that split a step."""
     import torch
 
     from nanosim_tpu_torch.io.genome import PackedGenome
@@ -1003,11 +1025,12 @@ def phase_experiments(prefix: str, ref: str, card: str):
          walk_ablate.ABLATION_STEPS, "full", "bench/micro_walk8.py:142"),
         ("walk_row_select", walk_ablate.walk_row_select, walk_ablate.ROW_SELECT_VARIANTS,
          walk_ablate.ROW_SELECT_STEPS, "scan", "bench/micro_walk9.py:188"))
+    kernels = {"walk_ablation": "fixed_walk_warp_kernel", "walk_row_select": "fixed_walk_kernel"}
 
-    def compare(fn, variants, v, steps):
-        got = fn(v, wk, *t, steps)
+    def compare(fn, variants, v, steps, keys=wk):
+        got = fn(v, keys, *t, steps)
         t0 = time.time()
-        want = walk_ablate.fixed_walk_plain(variants[v], wk, *t, steps)
+        want = walk_ablate.fixed_walk_plain(variants[v], keys, *t, steps)
         torch.cuda.synchronize()
         plain_ms = (time.time() - t0) * 1e3
         err = 0
@@ -1020,8 +1043,8 @@ def phase_experiments(prefix: str, ref: str, card: str):
                          f"plain {tuple(w.shape)} {w.dtype}")
                 err = max(err, int((g.long() - w.long()).abs().max()))
         if err != 0:
-            fail(f"{fn.__name__}[{v}] E={steps}: kernel differs from its plain version "
-                 f"(max abs err {err})")
+            fail(f"{fn.__name__}[{v}] B={keys.shape[0]} E={steps}: kernel differs from its plain "
+                 f"version (max abs err {err})")
         return got, plain_ms
 
     plain_short, plain_full, exact = {}, {}, {}
@@ -1032,6 +1055,19 @@ def phase_experiments(prefix: str, ref: str, card: str):
         print(f"experiment {name}: {len(variants)} variants equal their plain versions at "
               f"{ABLATION_CHECK_STEPS} steps, `{whole}` at {steps} steps (plain "
               f"{plain_full[name]:.0f} ms)", flush=True)
+        if name == "walk_ablation":
+            ragged = wk[:RAGGED_LANES].contiguous()
+            for v in variants:
+                compare(fn, variants, v, ABLATION_CHECK_STEPS, ragged)
+            # the thread-per-lane kernel's `full` (K7's `scan`) computes the same
+            scan = walk_ablate.walk_row_select("scan", wk, *t, steps)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, scan)):
+                fail(f"walk_ablation[full] differs from walk_row_select[scan] at {steps} steps")
+            print(f"experiment {name}: {len(variants)} variants equal their plain versions on "
+                  f"{RAGGED_LANES} lanes; `full` equals the thread-per-lane kernel's "
+                  f"(walk_row_select[scan]) bit for bit at {steps} steps", flush=True)
+            del scan
         if name == "walk_row_select":
             exact["scan"] = got
             for v in walk_ablate.ROW_SELECT_EXACT[1:]:
@@ -1050,6 +1086,7 @@ def phase_experiments(prefix: str, ref: str, card: str):
               "walk_row_select": dict(walk_ablate.walk_row_select.launches_by_variant)}
     if not res["exact_variants_agree"]:
         fail("measure_step_costs: the exact row-select variants disagree")
+    per_thread = res["thread_per_lane_full"]
     results = []
     for name, fn, variants, steps, whole, replaces in experiments:
         key = "ablation" if name == "walk_ablation" else "row_select"
@@ -1061,11 +1098,14 @@ def phase_experiments(prefix: str, ref: str, card: str):
             row = {
                 "name": f"{name}[{v}]", "route": "cuda",
                 "source": "nanosim_tpu_torch/csrc/walk_ablate.cu", "replaces": replaces,
-                "B": B, "E": steps, "launches": counts[name][v], "max_abs_err": 0.0,
-                "ms": r["ms"], "ns_per_lane_step": r["ns_per_lane_step"],
+                "kernel": kernels[name], "B": B, "E": steps, "launches": counts[name][v],
+                "max_abs_err": 0.0, "ms": r["ms"], "ns_per_lane_step": r["ns_per_lane_step"],
+                "ns_per_serial_step": r["ns_per_serial_step"],
                 "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
                 "path": "experiments",
             }
+            if name == "walk_ablation":
+                row["thread_per_lane_full_ms"] = per_thread["ms"]
             if v == whole:
                 row.update(plain_ms=plain_full[name], role="record")
             else:  # the plain version of the other variants ran at the short check only
@@ -1073,9 +1113,14 @@ def phase_experiments(prefix: str, ref: str, card: str):
                            check_steps=ABLATION_CHECK_STEPS, role="variant")
             results.append(row)
             print(f"experiment {name}[{v}]: {r['ms']:.3f} ms per launch, {steps} steps x {B} "
-                  f"lanes, {r['ns_per_lane_step']:.4f} ns per lane-step (bound {bound:.4f} ms "
-                  f"by {bound_by}, {r['ms'] / bound:.1f}x); launches {counts[name][v]}",
-                  flush=True)
+                  f"lanes, {r['ns_per_lane_step']:.4f} ns per lane-step, "
+                  f"{r['ns_per_serial_step']:.1f} ns per serial step (bound {bound:.4f} ms by "
+                  f"{bound_by}, {r['ms'] / bound:.1f}x); launches {counts[name][v]}", flush=True)
+    print(f"experiment walk_ablation: the thread-per-lane kernel's `full` (walk_row_select[scan] "
+          f"at {per_thread['steps']} steps) {per_thread['ms']:.3f} ms, "
+          f"{per_thread['ns_per_serial_step']:.1f} ns per serial step; the warp-per-lane `full` "
+          f"takes {res['ablation']['full']['ms'] / per_thread['ms']:.3f} of it ({card})",
+          flush=True)
     print("step cost differences (ms per launch of "
           f"{walk_ablate.ABLATION_STEPS} steps x {B} lanes, {card}): "
           + ", ".join(f"{k} = {v:.3f}" for k, v in res["differences_ms"].items()), flush=True)
@@ -1252,6 +1297,7 @@ def zero_counters():
     assemble_cuda.assemble_rolls.launches = 0
     gather_window.gather_windowed.launches = 0
     gather_window.gather_windowed.launches_by_variant = {}
+    gather_window.gather_windowed.launches_by_copy = {}
     for fn in (walk_ablate.walk_ablation, walk_ablate.walk_row_select):
         fn.launches = 0
         fn.launches_by_variant = {}
@@ -1449,22 +1495,30 @@ def _ragged_window_inputs(B: int, L: int, PB: int, seed: int):
 
 def phase_gather_window(card: str):
     """K8 (bench/gather_variants.py:75) on the experiment's inputs (B=1,024,
-    L=19,456, 4,608 packed bytes, realistic_idx from RandomState(0)) and at a
-    ragged shape: every instance against its plain version, then, with the
-    counters zeroed, gather_window.measure_gather_variants: ms per launch of
-    every instance beside the bound, the plain version and one torch.gather
-    of the same bytes, and the W4 coverage check."""
+    L=19,456, 4,608 packed bytes, realistic_idx from RandomState(0); the
+    windows come by TMA bulk copies) and at a ragged shape (B=37, L=3,000,
+    770-byte rows: the threads' copies): every instance against its plain
+    version, each input on the copy route the launcher must report for it.
+    Then, with the counters zeroed,
+    gather_window.measure_gather_variants (every instance launched, the W4
+    coverage check), and each instance's figures from _kernel_times: ms per
+    launch beside the bound, the plain version and one torch.gather of the
+    same bytes, the kernel's and torch.gather's device time, the host's us
+    per call, and a trace of 100 calls that may show nothing but the
+    kernel, whose device time counts only where it shows one launch a
+    call."""
     import torch
 
     from nanosim_tpu_torch.ops import gather_window as gw
-    from nanosim_tpu_torch.ops.cuda_build import time_ms
 
     dev = torch.device("cuda")
     rec = gw.experiment_inputs(dev)
     ragged = _ragged_window_inputs(37, 3000, 770, 9)
-    plain_ms = {}
-    for role, (packed, idx, ws) in (("record", rec[:3]), ("", ragged)):
+    copy = {}  # the copy route the launcher reported for each input
+    for role, (packed, idx, ws), route in (("record", rec[:3], "bulk"),
+                                           ("ragged", ragged, "threads")):
         B, L = idx.shape
+        gw.gather_windowed.launches_by_copy = {}
         for kt, w8v in gw.INSTANCES:
             got = gw.gather_windowed(packed, idx, ws, kt, w8v)
             want = gw.gather_windowed_plain(packed, idx, ws, w8v)
@@ -1476,44 +1530,58 @@ def phase_gather_window(card: str):
             if err != 0:
                 fail(f"gather_windowed KT{kt} W{w8v} B={B} L={L}: kernel differs from its plain "
                      f"version (max abs err {err})")
-            if role:
-                plain_ms[kt, w8v] = time_ms(
-                    lambda: gw.gather_windowed_plain(packed, idx, ws, w8v), TIMED_LAUNCHES)
-        print(f"kernel gather_windowed: B={B} L={L} PB={packed.shape[1]}: instances "
-              f"{gw.INSTANCES} exact against the plain version; W4 windows cover every tile: "
-              f"{gw.window_covers(idx, ws, 4)}", flush=True)
+        routes = dict(gw.gather_windowed.launches_by_copy)
+        if routes != {route: len(gw.INSTANCES)}:
+            fail(f"gather_windowed B={B} L={L} PB={packed.shape[1]}: the launcher took the copy "
+                 f"routes {routes}, not the {route} route on every launch")
+        copy[role] = route
+        print(f"kernel gather_windowed: B={B} L={L} PB={packed.shape[1]} (copies by the "
+              f"{route} route, as the launcher reported): instances {gw.INSTANCES} exact against "
+              f"the plain version; W4 windows cover every tile: {gw.window_covers(idx, ws, 4)}",
+              flush=True)
     packed, idx, ws, want = rec
     B, L = idx.shape
     PB = packed.shape[1]
     zero_counters()
-    res = gw.measure_gather_variants(dev, launches=TIMED_LAUNCHES, inputs=rec)
+    res = gw.measure_gather_variants(dev, launches=GATHER_TIMED_LAUNCHES, inputs=rec)
     counts = dict(gw.gather_windowed.launches_by_variant)
     # the library yardstick: one torch.gather of the packed bytes (its int64
     # index made outside the timed call)
     i64 = (idx >> 2).long()
-    library_ms = time_ms(lambda: torch.gather(packed, 1, i64), TIMED_LAUNCHES)
+    times = {}
+    for name, v in res["instances"].items():
+        kt, w8v = v["kt"], v["w8v"]
+        times[name] = _kernel_times(
+            f"gather_windowed[{name}]", lambda: gw.gather_windowed(packed, idx, ws, kt, w8v),
+            lambda: gw.gather_windowed_plain(packed, idx, ws, w8v),
+            lambda: torch.gather(packed, 1, i64), "gather_window_kernel",
+            GATHER_TIMED_LAUNCHES, one_kernel=True)
     del i64
     # each index read once (4 B), each result written once (4 B), each
     # packed row read once
     bound, bound_by = _bound_ms(8 * B * L + B * PB, 0, 0)
     results = []
     for name, v in res["instances"].items():
-        kt, w8v = v["kt"], v["w8v"]
-        print(f"experiment gather_windowed[{name}] (the experiment's {', '.join(v['names'])}): "
-              f"{v['ms']:.4f} ms (plain {plain_ms[kt, w8v]:.4f} ms, torch.gather "
-              f"{library_ms:.4f} ms, bound {bound:.4f} ms by {bound_by}, {v['ms'] / bound:.1f}x) "
-              f"correct={v['correct']} window covers={v['window_covers']}; {card}", flush=True)
+        kt, w8v, t = v["kt"], v["w8v"], times[name]
+        print(f"experiment gather_windowed[{name}] (the experiment's {', '.join(v['names'])}; "
+              f"{copy['record']} copies): sweep {v['ms']:.4f} ms; "
+              + _times_text(t, bound, bound_by)
+              + f"; one kernel a call: {t['trace_kernel_launches']} launches, "
+              f"{t['trace_other_ops']} other device ops in {t['trace_calls']} calls"
+              + f"; correct={v['correct']} window covers={v['window_covers']}; {card}",
+              flush=True)
         if counts.get((kt, w8v), 0) == 0:
             fail(f"gather_windowed KT{kt} W{w8v} was not launched by measure_gather_variants")
-        results.append({
+        row = {
             "name": f"gather_windowed[{name}]", "route": "cuda",
             "source": "nanosim_tpu_torch/csrc/gather_window.cu",
             "replaces": "bench/gather_variants.py:75", "B": B, "L": L, "PB": PB,
-            "kt": kt, "w8v": w8v, "variants": v["names"], "launches": counts[kt, w8v],
-            "max_abs_err": 0.0, "ms": v["ms"], "plain_ms": plain_ms[kt, w8v], "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms, "correct": v["correct"],
-            "role": "record", "path": "experiments",
-        })
+            "kt": kt, "w8v": w8v, "copy": copy["record"],
+            "variants": v["names"], "launches": counts[kt, w8v], "max_abs_err": 0.0,
+            "sweep_ms": v["ms"], **t, "bound_ms": bound, "bound_by": bound_by,
+            "correct": v["correct"], "role": "record", "path": "experiments",
+        }
+        results.append(row)
     return results
 
 
@@ -2357,6 +2425,9 @@ def main():
     ap.add_argument("--kernels", action="store_true",
                     help="the kernels only (builds, then K1-K5 at every path's shapes against "
                          "their plain versions, timed), driving no path")
+    ap.add_argument("--experiments", action="store_true",
+                    help="the measuring kernels only (builds, the walk experiments K6 and K7 "
+                         "and the windowed-gather experiment K8), driving no path")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(REPO, "nanosim_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
@@ -2380,6 +2451,16 @@ def main():
                               "device": {"platform": "gpu", "kind": kind, "count": count}}))
             return
         t0 = time.time()
+        if args.experiments:
+            prefix, ref = make_fixture(os.path.join(d, "bench"), GENOME_MB, 8000, 2200, 2000)
+            error_model.write_chimeric_info(prefix + "_chimeric_info", CHI_SEGMENT_MEAN, 0.2)
+            rows = phase_experiments(prefix, ref, card) + phase_gather_window(card)
+            print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
+                                          for k in rows]}))
+            print(json.dumps({"ok": True, "experiments_only": True,
+                              "seconds": time.time() - t_start,
+                              "device": {"platform": "gpu", "kind": kind, "count": count}}))
+            return
         if args.kernels:
             fx = make_trx_fixtures(os.path.join(d, "trx"), N_TRX, N_IR_TRX, IR_GENOME,
                                    long_exons=IR_LONG_EXONS)

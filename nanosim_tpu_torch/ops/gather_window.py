@@ -16,10 +16,14 @@ holding code idx as read from the tile's window of w8v * 128 bytes:
 Where the window covers the tile, that is packed[b, idx >> 2].  The
 experiment's instances are (KT, W8v) = (4, 8), (4, 4) and (8, 4); its `dt`
 (f32 or bf16 one-hot products) is exact for bytes, so its bf16 names map to
-the same instances (`VARIANTS`) and each instance is timed once.  For a tensor on the CPU the wrapper runs
-the plain version (`gather_windowed_plain`); for a CUDA tensor it launches
-the kernel or raises — there is no fallback.  ``gather_windowed.launches``
-counts the launches (``launches_by_variant`` per (kt, w8v)).
+the same instances (`VARIANTS`) and each instance is timed once.  For a
+tensor on the CPU the wrapper runs the plain version
+(`gather_windowed_plain`); for a CUDA tensor it launches the kernel or
+raises — there is no fallback.  The kernel's launcher stages each window by
+a TMA bulk copy where the packed rows' base and length are multiples of 16
+bytes, by the threads' own copies otherwise, and reports the route it took.
+``gather_windowed.launches`` counts the launches (``launches_by_variant``
+per (kt, w8v), ``launches_by_copy`` per copy route, "bulk" or "threads").
 
 `window_starts` and `realistic_idx` are the JAX package's
 (ops/window_gather.py:97-112, bench/bench_gather.py:18-33);
@@ -33,7 +37,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .cuda_build import KernelLibrary, time_ms
+from .cuda_build import KernelLibrary, current_raw_stream, time_ms
 
 TILE = 1024  # output positions per window
 INSTANCES = ((4, 8), (4, 4), (8, 4))  # (KT, W8v) compiled into csrc/gather_window.cu
@@ -48,7 +52,8 @@ SHAPE = {"B": 1024, "L": 19456, "PB": 4608}
 def _bind(lib):
     p = ctypes.c_void_p
     lib.launch_gather_window.argtypes = [ctypes.c_int, ctypes.c_int, p, ctypes.c_int64, p, p,
-                                         ctypes.c_int, ctypes.c_int64, ctypes.c_int, p, p]
+                                         ctypes.c_int, ctypes.c_int64, ctypes.c_int, p, p,
+                                         ctypes.POINTER(ctypes.c_int)]
     lib.launch_gather_window.restype = ctypes.c_int
 
 
@@ -110,7 +115,7 @@ def gather_windowed_plain(packed: torch.Tensor, idx: torch.Tensor, ws: torch.Ten
 def gather_windowed(packed: torch.Tensor, idx: torch.Tensor, ws: torch.Tensor, kt: int,
                     w8v: int) -> torch.Tensor:
     """The CUDA kernel's (kt, w8v) instance for CUDA tensors, the plain
-    version for CPU tensors (kt only schedules the kernel's work)."""
+    version for CPU tensors (kt sets how many tiles a work item stages)."""
     if (kt, w8v) not in INSTANCES:
         raise ValueError(f"gather_windowed: no instance for KT={kt} W8v={w8v}; "
                          f"the instances are {INSTANCES}")
@@ -118,10 +123,12 @@ def gather_windowed(packed: torch.Tensor, idx: torch.Tensor, ws: torch.Tensor, k
         if idx.device.type != "cpu":
             raise ValueError(f"gather_windowed: runs on CPU or CUDA tensors, got {idx.device}")
         return gather_windowed_plain(packed, idx, ws, w8v)
-    if packed.device != idx.device or ws.device != idx.device:
+    dev = idx.get_device()
+    if packed.get_device() != dev or ws.get_device() != dev:
         raise ValueError(f"gather_windowed: packed on {packed.device}, idx on {idx.device}, "
                          f"ws on {ws.device}")
-    if packed.dtype != torch.uint8 or idx.dtype != torch.int32 or ws.dtype != torch.int32:
+    if (packed.dtype is not torch.uint8 or idx.dtype is not torch.int32
+            or ws.dtype is not torch.int32):
         raise ValueError(f"gather_windowed: needs uint8 packed, int32 idx and ws, got "
                          f"{packed.dtype}, {idx.dtype}, {ws.dtype}")
     B, L = idx.shape
@@ -130,23 +137,30 @@ def gather_windowed(packed: torch.Tensor, idx: torch.Tensor, ws: torch.Tensor, k
             or packed.shape[1] == 0):
         raise ValueError(f"gather_windowed: shapes {tuple(packed.shape)}, {tuple(idx.shape)}, "
                          f"{tuple(ws.shape)} are not [B, PB], [B, L], [B, ceil(L/1024)]")
-    lib = LIBRARY.load()
-    packed, idx, ws = packed.contiguous(), idx.contiguous(), ws.contiguous()
-    out = torch.empty((B, L), dtype=torch.int32, device=idx.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(idx.device).cuda_stream)
-    rc = lib.launch_gather_window(kt, w8v, ctypes.c_void_p(packed.data_ptr()), packed.shape[1],
-                                  ctypes.c_void_p(idx.data_ptr()), ctypes.c_void_p(ws.data_ptr()),
-                                  B, L, n_tiles, ctypes.c_void_p(out.data_ptr()), stream)
+    launch = LIBRARY.load().launch_gather_window  # typed when the library loads
+    if not packed.is_contiguous():
+        packed = packed.contiguous()
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
+    if not ws.is_contiguous():
+        ws = ws.contiguous()
+    out = idx.new_empty((B, L))
+    bulk = ctypes.c_int(0)
+    rc = launch(kt, w8v, packed.data_ptr(), packed.shape[1], idx.data_ptr(), ws.data_ptr(), B, L,
+                n_tiles, out.data_ptr(), current_raw_stream(dev), ctypes.byref(bulk))
     if rc != 0:
         raise RuntimeError(f"gather_window kernel launch failed: code {rc}")
     gather_windowed.launches += 1
-    key = (kt, w8v)
-    gather_windowed.launches_by_variant[key] = gather_windowed.launches_by_variant.get(key, 0) + 1
+    by = gather_windowed.launches_by_variant
+    by[kt, w8v] = by.get((kt, w8v), 0) + 1
+    route = "bulk" if bulk.value else "threads"
+    gather_windowed.launches_by_copy[route] = gather_windowed.launches_by_copy.get(route, 0) + 1
     return out
 
 
 gather_windowed.launches = 0
 gather_windowed.launches_by_variant = {}  # (kt, w8v) -> launches
+gather_windowed.launches_by_copy = {}  # "bulk" or "threads" -> launches
 
 
 def experiment_inputs(device, B=SHAPE["B"], L=SHAPE["L"], PB=SHAPE["PB"]):

@@ -2,7 +2,11 @@
 (csrc/walk_ablate.cu) and its plain PyTorch version: the measuring kernels
 that say what one walk step costs.
 
-Two experiments share one templated kernel:
+Two experiments, each with its own kernel (`LAUNCHERS`): the step ablation
+runs the aligned walk's design, one warp per read lane
+(`fixed_walk_warp_kernel`, `WARP_LANES_PER_BLOCK` lanes a block); the
+row-select experiment the first design, one thread per lane
+(`fixed_walk_kernel`).
 
 * `walk_ablation(variant, ...)`: which part of a step costs what.  `full` is
   the whole step; `nothreefry` fixes the three uniforms at 0.5; `nodma` stores
@@ -65,13 +69,18 @@ ROW_SELECT_VARIANTS = {
     "min": (True, True, "none", True),
 }
 ROW_SELECT_EXACT = ("scan", "search", "global")
+# the C launcher of csrc/walk_ablate.cu each experiment's variants go through;
+# its dispatch instantiates exactly the switches of the experiment's variants
+LAUNCHERS = {"walk_ablation": "launch_fixed_walk_warp", "walk_row_select": "launch_fixed_walk"}
+WARP_LANES_PER_BLOCK = 8  # csrc/walk_ablate.cu::kWarpLanes
 
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.launch_fixed_walk.argtypes = [i, i, i, i, p, i, i, p, i, p, p, p, p, i, i, p, i, i,
-                                      p, p, p, p]
-    lib.launch_fixed_walk.restype = ctypes.c_int
+    for name in LAUNCHERS.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [i, i, i, i, p, i, i, p, i, p, p, p, p, i, i, p, i, i, p, p, p, p]
+        fn.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("walk_ablate.cu", _bind)
@@ -134,11 +143,11 @@ def fixed_walk_plain(switches, walk_keys, match_markov, mixtures, trans, n_steps
     return words, pos + l_new + n_events, _as_i32(acc)
 
 
-def _fixed_walk(switches, walk_keys, match_markov, mixtures, trans, n_steps: int,
-                m_ref: int, first_match: int):
-    """Launch the kernel instance for `switches` on CUDA tensors."""
+def _fixed_walk(launcher: str, switches, walk_keys, match_markov, mixtures, trans,
+                n_steps: int, m_ref: int, first_match: int):
+    """Launch `launcher`'s kernel instance for `switches` on CUDA tensors."""
     threefry, err_tables, match, store = switches
-    lib = LIBRARY.load()
+    launch = getattr(LIBRARY.load(), launcher)
     dev = walk_keys.device
     B, E = walk_keys.shape[0], int(n_steps)
     wk = _as_u32_words(walk_keys)
@@ -158,7 +167,7 @@ def _fixed_walk(switches, walk_keys, match_markov, mixtures, trans, n_steps: int
     result = torch.empty(B, dtype=torch.int32, device=dev)
     fold = torch.empty(B, dtype=torch.int32, device=dev)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    rc = lib.launch_fixed_walk(
+    rc = launch(
         int(threefry), int(err_tables), MATCH_MODES[match], int(store), _ptr(wk), int(m_ref),
         int(first_match), _ptr(cdf), cdf.shape[1], _ptr(bin_lo), _ptr(breaks), _ptr(vals),
         _ptr(n_bk), nb, K, _ptr(cum), B, E, _ptr(ev), _ptr(result), _ptr(fold), stream)
@@ -175,7 +184,7 @@ def _experiment(wrapper, variants, variant, walk_keys, match_markov, mixtures, t
             first_match)
     if not walk_keys.is_cuda:
         return fixed_walk_plain(*args)
-    out = _fixed_walk(*args)
+    out = _fixed_walk(LAUNCHERS[wrapper.__name__], *args)
     wrapper.launches += 1
     wrapper.launches_by_variant[variant] = wrapper.launches_by_variant.get(variant, 0) + 1
     return out
@@ -222,27 +231,38 @@ def measure_step_costs(tables, device="cuda", n_lanes: int = N_LANES,
                        ablation_steps: int = ABLATION_STEPS,
                        row_select_steps: int = ROW_SELECT_STEPS, launches: int = 5) -> dict:
     """Run both experiments on the card: every variant's time per launch
-    (CUDA events, `launches` launches after a warm-up) and per lane-step, the
-    three differences the ablation was written for, and whether the exact
-    row-select variants agree bit for bit.  `tables` is a SimTables on
-    `device`.  Raises without a CUDA card."""
+    (CUDA events, `launches` launches after a warm-up), per lane-step and per
+    serial step (the time over the steps: every lane takes every step); the
+    thread-per-lane kernel's whole step at the ablation's steps (the
+    row-select `scan`, the same function as `full`); the differences that
+    split a step (hashes full - nothreefry, store full - nodma, error tables
+    full - onlymatch, match tables onlymatch - min, all tables full - min);
+    and whether the exact row-select variants agree bit for bit.  `tables` is
+    a SimTables on `device`.  Raises without a CUDA card."""
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: the walk experiments measure the card")
     wk = experiment_keys(device, n_lanes)
     t = (tables.match_markov, tables.mixtures, tables.trans)
+
+    def timed(fn, v, steps):
+        ms = time_ms(lambda: fn(v, wk, *t, steps), launches)
+        return {"steps": steps, "ms": ms, "ns_per_lane_step": ms * 1e6 / (steps * n_lanes),
+                "ns_per_serial_step": ms * 1e6 / steps}
+
     out = {"n_lanes": n_lanes, "ablation": {}, "row_select": {}}
     for name, fn, variants, steps in (
             ("ablation", walk_ablation, ABLATION_VARIANTS, ablation_steps),
             ("row_select", walk_row_select, ROW_SELECT_VARIANTS, row_select_steps)):
         for v in variants:
-            ms = time_ms(lambda: fn(v, wk, *t, steps), launches)
-            out[name][v] = {"steps": steps, "ms": ms,
-                            "ns_per_lane_step": ms * 1e6 / (steps * n_lanes)}
+            out[name][v] = timed(fn, v, steps)
     a = out["ablation"]
+    out["thread_per_lane_full"] = timed(walk_row_select, "scan", ablation_steps)
     out["differences_ms"] = {
         "full - nothreefry": a["full"]["ms"] - a["nothreefry"]["ms"],
         "full - nodma": a["full"]["ms"] - a["nodma"]["ms"],
+        "full - onlymatch": a["full"]["ms"] - a["onlymatch"]["ms"],
+        "onlymatch - min": a["onlymatch"]["ms"] - a["min"]["ms"],
         "full - min": a["full"]["ms"] - a["min"]["ms"],
     }
     got = {v: walk_row_select(v, wk, *t, row_select_steps) for v in ROW_SELECT_EXACT}
@@ -266,10 +286,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     prof = profile.load_profile(args.model_prefix, mode="genome", chimeric=True)
     res = measure_step_costs(build_tables(prof, torch.device("cuda")))
-    for exp in ("ablation", "row_select"):
-        for v, r in res[exp].items():
-            print(f"{exp} {v}: {r['ms']:.3f} ms for {r['steps']} steps x {res['n_lanes']} lanes, "
-                  f"{r['ns_per_lane_step']:.4f} ns per lane-step")
+    rows = [(exp, v, r) for exp in ("ablation", "row_select") for v, r in res[exp].items()]
+    rows.append(("thread per lane", "full", res["thread_per_lane_full"]))
+    for exp, v, r in rows:
+        print(f"{exp} {v}: {r['ms']:.3f} ms for {r['steps']} steps x {res['n_lanes']} lanes, "
+              f"{r['ns_per_lane_step']:.4f} ns per lane-step, {r['ns_per_serial_step']:.1f} ns "
+              "per serial step")
     print(json.dumps(res))
 
 

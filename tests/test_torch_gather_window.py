@@ -5,6 +5,9 @@ kernel body for every instance (ragged shapes, windows past the row's end, a
 W4 tile whose span overflows), and, on the card only, the kernel against the
 plain version."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -134,3 +137,52 @@ def test_kernel_matches_plain_on_the_card():
         torch.cuda.synchronize()
         assert torch.equal(got, gw.gather_windowed_plain(packed, idx, ws, w8v))
     assert torch.equal(gw.gather_windowed(packed, idx, ws, 4, 8), want)
+
+
+def test_bulk_copy_needs_16_byte_rows():
+    """The launcher alone chooses the copy route: TMA bulk copies only where
+    the packed rows' base and length are multiples of 16 bytes (the
+    experiment's 4,608-byte rows, not the ragged check's 770-byte ones), and
+    it reports the route it took; the wrapper passes none in and reads the
+    report."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "nanosim_tpu_torch", "csrc", "gather_window.cu")) as f:
+        cu = f.read()
+    launcher = cu[cu.index('extern "C" int launch_gather_window('):]
+    rule = re.search(r"const bool b = (.*);", launcher).group(1)
+    assert rule == "PB % 16 == 0 && (reinterpret_cast<uintptr_t>(packed) & 15) == 0"
+    assert "*bulk = b;" in launcher
+    assert launcher.count("launch_copy<") == len(gw.INSTANCES)
+    assert all("(b, p, PB" in line for line in launcher.splitlines() if "launch_copy<" in line)
+    assert 4608 % 16 == 0 and 770 % 16 != 0
+    with open(gw.__file__) as f:
+        wrapper = f.read()
+    assert "% 16" not in wrapper and "bulk.value" in wrapper
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,PB,route", [(3000, 770, "threads"), (3001, 770, "threads"),
+                                        (5000, 1280, "bulk")],
+                         ids=["L3000-PB770", "L3001-PB770", "L5000-PB1280"])
+@pytest.mark.parametrize("kt,w8v", gw.INSTANCES, ids=[f"KT{k}-W{w}" for k, w in gw.INSTANCES])
+def test_kernel_copy_routes_match_plain_on_the_card(kt, w8v, L, PB, route):
+    """B = 37 and L not a multiple of 1,024 (3,001: nor of 4, so the rows are
+    not 16-byte aligned and every position takes the scalar path): the
+    770-byte rows take the threads' copies, the 1,280-byte rows the TMA bulk
+    copies; lane 0's last window starts past its row (zeros), lane 1 has a
+    tile whose span overflows a W4 window.  Each equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the windowed gather is a CUDA kernel")
+    B = 37
+    n_tiles = -(-L // gw.TILE)
+    packed, idx = _inputs(B, L, PB, 4)
+    idx[1, 1024:1324] = np.minimum(idx[1, 1024:1324] + 2500, 4 * PB - 1)
+    idx_t = torch.as_tensor(idx, device="cuda")
+    ws, _ = gw.window_starts(idx_t, torch.ones_like(idx_t, dtype=torch.bool), n_tiles)
+    ws[0, -1] = (PB // 128 + 1) * 128 * 4
+    packed_t = torch.as_tensor(packed, device="cuda")
+    before = gw.gather_windowed.launches_by_copy.get(route, 0)
+    got = gw.gather_windowed(packed_t, idx_t, ws, kt, w8v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gw.gather_windowed_plain(packed_t, idx_t, ws, w8v))
+    assert gw.gather_windowed.launches_by_copy[route] == before + 1

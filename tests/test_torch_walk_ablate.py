@@ -10,6 +10,9 @@ variants are held against the plain versions on the card in the `gpu`-marked
 tests.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -31,8 +34,8 @@ def tables(tmp_path_factory):
     return load_both(prefix)[2]
 
 
-def _walk_keys(device="cpu", seed=7):
-    slots = torch.arange(B, dtype=torch.int64, device=device)
+def _walk_keys(device="cpu", seed=7, n_lanes=B):
+    slots = torch.arange(n_lanes, dtype=torch.int64, device=device)
     sk = trng.slot_keys(trng.base_key(seed, trng.STREAM_ALIGNED, device=device), slots)
     return trng.site_keys(sk, trng.SITE_WALK)
 
@@ -185,12 +188,48 @@ def test_wrappers_use_plain_version_on_cpu(tables):
     assert (walk_ablate.walk_ablation.launches, walk_ablate.walk_row_select.launches) == before
 
 
-def _on_card(tmp_path, fn, variants, n_steps):
+SOURCE = os.path.join(os.path.dirname(walk_ablate.__file__), os.pardir, "csrc",
+                      "walk_ablate.cu")
+
+
+def _dispatch(source: str, launcher: str) -> set:
+    """The switch combinations (threefry, error tables, match mode, store)
+    that `launcher`'s dispatch in the .cu source instantiates, from its
+    ``*_WALK_CASE(t, r, kMode, s)`` lines."""
+    modes = {name: int(v) for name, v in re.findall(r"\b(k[A-Z]\w*) = (\d+)",
+                                                     re.search(r"enum Match \{[^}]*\}",
+                                                               source).group(0))}
+    body = re.search(r'extern "C" int ' + launcher + r"\((.*?)\n\}", source, re.S).group(1)
+    cases = re.findall(r"^\s*[A-Z_]+_CASE\((\d), (\d), (k\w+), (\d)\)", body, re.M)
+    return {(bool(int(t)), bool(int(r)), modes[m], bool(int(st))) for t, r, m, st in cases}
+
+
+@pytest.mark.parametrize("experiment,variants", [
+    ("walk_ablation", walk_ablate.ABLATION_VARIANTS),
+    ("walk_row_select", walk_ablate.ROW_SELECT_VARIANTS)])
+def test_every_variant_has_an_instance_of_its_launcher(experiment, variants):
+    """Each experiment's variants go through its own launcher
+    (`LAUNCHERS`: the step ablation the warp-per-lane kernel, the row select
+    the thread-per-lane one), whose dispatch in csrc/walk_ablate.cu
+    instantiates exactly the switches of those variants."""
+    with open(SOURCE) as f:
+        source = f.read()
+    launcher = walk_ablate.LAUNCHERS[experiment]
+    want = {(t, r, walk_ablate.MATCH_MODES[m], st) for t, r, m, st in variants.values()}
+    assert _dispatch(source, launcher) == want
+    others = set().union(*(_dispatch(source, x) for x in walk_ablate.LAUNCHERS.values()
+                           if x != launcher))
+    assert want != others
+    lanes = re.search(r"constexpr int kWarpLanes = (\d+);", source).group(1)
+    assert int(lanes) == walk_ablate.WARP_LANES_PER_BLOCK
+
+
+def _on_card(tmp_path, fn, variants, n_steps, n_lanes=B):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the fixed-step walk kernels have no CPU mode")
     dev = torch.device("cuda")
     tt = port_tables(str(tmp_path), dev)
-    wk = _walk_keys(device=dev)
+    wk = _walk_keys(device=dev, n_lanes=n_lanes)
     out = {}
     for v in variants:
         args = (v, wk, tt.match_markov, tt.mixtures, tt.trans, n_steps)
@@ -209,6 +248,40 @@ def test_ablation_kernels_match_plain_on_card(tmp_path):
     (run there with: python -m pytest --noconftest -m gpu
     tests/test_torch_walk_ablate.py)."""
     _on_card(tmp_path, walk_ablate.walk_ablation, walk_ablate.ABLATION_VARIANTS, 96)
+
+
+@pytest.mark.gpu
+def test_ablation_warp_kernel_at_ragged_lanes_on_card(tmp_path):
+    """B = 37 lanes, not a multiple of the warp-per-lane kernel's 8 lanes a
+    block (its last block has warps past B, which keep to the store's
+    barriers), at 256 steps (eight chunks): every variant equals its plain
+    version."""
+    _on_card(tmp_path, walk_ablate.walk_ablation, walk_ablate.ABLATION_VARIANTS, 256,
+             n_lanes=37)
+
+
+@pytest.mark.gpu
+def test_ablation_warp_kernel_wraps_at_8192_steps_on_card(tmp_path):
+    """The whole step at the experiment's 8,192 steps on 37 lanes, from a
+    first match 4,096 below 2**18: 2 * pos passes 19 bits on every lane, so
+    the low bits of the stored words wrap; the words and the per-lane results
+    equal the plain version's and the thread-per-lane kernel's (row select
+    `scan`, the same function)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fixed-step walk kernels have no CPU mode")
+    tt = port_tables(str(tmp_path), torch.device("cuda"))
+    wk = _walk_keys(device="cuda", n_lanes=37)
+    args = (wk, tt.match_markov, tt.mixtures, tt.trans, 8192)
+    first = (1 << 18) - 4096
+    got = walk_ablate.walk_ablation("full", *args, first_match=first)
+    want = walk_ablate.fixed_walk_plain(walk_ablate.ABLATION_VARIANTS["full"], *args,
+                                        first_match=first)
+    scan = walk_ablate.walk_row_select("scan", *args, first_match=first)
+    torch.cuda.synchronize()
+    for g, w, k in zip(got, want, scan):
+        assert torch.equal(g, w) and torch.equal(g, k)
+    low = _u32(got[0]) & ((1 << 19) - 1)
+    assert (np.diff(low, axis=0) < -(1 << 18)).any(axis=0).all()
 
 
 @pytest.mark.gpu
