@@ -41,16 +41,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    read-emitting batch on the circular chromosome ([S*B, l_cap] and
    [(S-1)*B, gap_cap] bytes; 16-bit from the `-hp` batch), with both
    batches' peak device memory.  Then the fixed-step walk experiments (K6
-   on its warp-per-lane kernel, K7 on the thread-per-lane one) with the
-   chimeric simulator's tables at 1,024 lanes: every variant against its
-   plain version at 256 steps (K6's also on 37 lanes), the whole step at
-   8,192 and 2,048 steps, K6's `full` against the thread-per-lane kernel's
-   (K7's `scan`) at 8,192 steps bit for bit, the exact row-select variants
-   against each other, and walk_ablate.measure_step_costs (counters zeroed
-   just before): ms per launch, ns per lane-step and per serial step for
-   every variant, the thread-per-lane `full` beside them, and the
+   and K7, both on the warp-per-lane kernel) with the chimeric simulator's
+   tables at 1,024 lanes: every variant against its plain version at 256
+   steps on 1,024 and on 37 lanes, the exact row-select variants (scan,
+   search, global) against each other on both, the whole step at 8,192 and
+   2,048 steps, K6's `full` against K7's `search` at 8,192 steps bit for bit,
+   the exact row-select variants against each other at 2,048 steps, and
+   walk_ablate.measure_step_costs (counters zeroed just before): ms per
+   launch, ns per lane-step and per serial step for every variant, and the
    differences that split a step (full - nothreefry, full - nodma,
-   full - onlymatch, onlymatch - min, full - min) on a line of their own;
+   full - onlymatch, onlymatch - min, full - min) and set the row selects
+   apart (search - scan, global - scan, min - scan), each on a line of
+   their own;
 4. the CUDA path against the CPU path of the same program at a small size:
    byte-identical FASTQ and error-profile files (the CPU path is held
    byte-identical to the JAX package by the test suite), for linear DNA on
@@ -58,7 +60,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    NANOSIM_TPU_RECON=0; then the same three with `-hp -k 6` on references
    written with hp_bias, so that suppression and resizing fire; then
    `--chimeric` (segment mean 1.9) linear, circular, NANOSIM_TPU_RECON=0 and
-   `-hp -k 6` circular;
+   `-hp -k 6` circular; then `-med/-sd` (lognormal lengths) linear, circular,
+   NANOSIM_TPU_RECON=0 and `--perfect`;
 5. the main path: `simulate_genome(device="cuda")` at the bench's size (48 Mb
    genome in 4 chromosomes, 20,000 reads, batch 2,048, FASTQ).  The kernels'
    launch counters are zeroed just before and read just after; both walks
@@ -129,7 +132,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    both samples (three species, two samples, batch 64, so that the species
    quota crosses batches): plain reads, `--chimeric` on the
    host-reconstruction route and with NANOSIM_TPU_RECON=0, `--perfect` and
-   `-hp -k 6`;
+   `-hp -k 6`; and `-med/-sd` on two species;
 17. the metagenome path at full width, the JAX package's metagenome
    configuration (bench.py:339-391: three species of two linear 8 Mb
    chromosomes, the bench model with segment mean 1.3, abundances 50/30/20,
@@ -141,7 +144,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    points of the abundance file; a traced same-seed rerun byte-identical
    (idle share, device ops per batch, the host seconds of the species
    assignment); NANOSIM_TPU_RECON=0 at 2,000 reads equal to Route A's files,
-   with K4 launched.
+   with K4 launched;
+18. the -med/-sd path at full width: phase 5's configuration with lognormal
+   lengths (`-med 8000 -sd 0.27`, the bench model's spread), counters zeroed
+   just before and read just after: K1 and K2 must have launched, with 0
+   checksum-fallback lanes, matching record counts, ref_base checked, and a
+   traced same-seed rerun byte-identical (idle share).
 
 The line before the last is the kernels' JSON record: every kernel at every
 shape a path gives it, with that path's launches (`path`: main, circular,
@@ -149,7 +157,9 @@ shape a path gives it, with that path's launches (`path`: main, circular,
 and `experiments` for the whole-step variants of K6 and K7 and the
 instances of K8); the metagenome path gives K1 and K2 the chimeric path's
 shapes and K4 (under NANOSIM_TPU_RECON=0) the chimeric circular path's, so
-those rows also carry `launches_metagenome` and `launches_metagenome_recon0`;
+those rows also carry `launches_metagenome` and `launches_metagenome_recon0`,
+and the -med/-sd path gives K1 and K2 the main path's, so those carry
+`launches_lognormal`;
 the line before it holds the other shapes and the other experiment variants.
 The last line is {"ok": true, "device": {...}}.  `--quick` runs only the
 builds and phases 12-16 (a short check while working on the newest
@@ -192,6 +202,9 @@ N_CHI = 6000  # Route A (host reconstruction, packed walks), 48 Mb genome
 N_CHI_CIRC = 2000  # Route B (device-materialized), the circular chromosome
 N_CHI_RECON0 = 2000  # NANOSIM_TPU_RECON=0 against Route A
 N_CHI_HP = 1000  # --chimeric -hp -k 6 on Route B (Python log per event)
+# the -med/-sd path: lognormal lengths about a median of 8,000 with the bench
+# model's spread (sd 2,200 of 8,000: sigma 0.27 of the log)
+LN_MEDIAN, LN_SD = 8000, 0.27
 ABLATION_CHECK_STEPS = 256  # every experiment variant against its plain version
 TIMED_LAUNCHES = 10
 # the element gather (K4) at the transcriptome shapes takes a few us a call,
@@ -991,17 +1004,19 @@ RAGGED_LANES = 37  # not a multiple of the warp-per-lane kernel's 8 lanes a bloc
 
 
 def phase_experiments(prefix: str, ref: str, card: str):
-    """K6 and K7, the fixed-step walk experiments, with the tables of the
-    chimeric simulator at batch 1,024 as the JAX package's scripts take them.
-    Every variant against its plain version at 256 steps, and every K6
-    variant (the warp-per-lane kernel) also on 37 lanes; the whole step
+    """K6 and K7, the fixed-step walk experiments, both on the warp-per-lane
+    kernel, with the tables of the chimeric simulator at batch 1,024 as the
+    JAX package's scripts take them.  Every variant against its plain version
+    at 256 steps on 1,024 and on 37 lanes; the exact row-select variants
+    (scan, search, global) against each other on both; the whole step
     (`full`, and `scan` of the row-select experiment) at the scripts' step
     counts (8,192 and 2,048), where the plain version is timed; K6's `full`
-    against the thread-per-lane kernel's (K7's `scan`) at 8,192 steps, bit for
-    bit; the exact row-select variants against each other.  Then, with the
-    counters zeroed, walk_ablate.measure_step_costs: ms per launch, ns per
-    lane-step and per serial step for every variant, the thread-per-lane
-    kernel's `full` beside them, and the differences that split a step."""
+    against K7's `search` (the same function through other match code) at
+    8,192 steps, bit for bit; the exact row-select variants against each
+    other at 2,048.  Then, with the counters zeroed,
+    walk_ablate.measure_step_costs: ms per launch, ns per lane-step and per
+    serial step for every variant, and the differences that split a step and
+    set the row selects apart."""
     import torch
 
     from nanosim_tpu_torch.io.genome import PackedGenome
@@ -1025,7 +1040,6 @@ def phase_experiments(prefix: str, ref: str, card: str):
          walk_ablate.ABLATION_STEPS, "full", "bench/micro_walk8.py:142"),
         ("walk_row_select", walk_ablate.walk_row_select, walk_ablate.ROW_SELECT_VARIANTS,
          walk_ablate.ROW_SELECT_STEPS, "scan", "bench/micro_walk9.py:188"))
-    kernels = {"walk_ablation": "fixed_walk_warp_kernel", "walk_row_select": "fixed_walk_kernel"}
 
     def compare(fn, variants, v, steps, keys=wk):
         got = fn(v, keys, *t, steps)
@@ -1047,38 +1061,44 @@ def phase_experiments(prefix: str, ref: str, card: str):
                  f"version (max abs err {err})")
         return got, plain_ms
 
-    plain_short, plain_full, exact = {}, {}, {}
+    def exact_agree(got, where):
+        for v in walk_ablate.ROW_SELECT_EXACT[1:]:
+            if not all(torch.equal(x, y) for x, y in zip(got[v], got["scan"])):
+                fail(f"walk_row_select[{v}] differs from `scan` {where}")
+
+    plain_short, plain_full = {}, {}
+    ragged = wk[:RAGGED_LANES].contiguous()
     for name, fn, variants, steps, whole, _ in experiments:
+        short, short_ragged = {}, {}
         for v in variants:
-            _, plain_short[name, v] = compare(fn, variants, v, ABLATION_CHECK_STEPS)
+            short[v], plain_short[name, v] = compare(fn, variants, v, ABLATION_CHECK_STEPS)
+            short_ragged[v], _ = compare(fn, variants, v, ABLATION_CHECK_STEPS, ragged)
         got, plain_full[name] = compare(fn, variants, whole, steps)
         print(f"experiment {name}: {len(variants)} variants equal their plain versions at "
-              f"{ABLATION_CHECK_STEPS} steps, `{whole}` at {steps} steps (plain "
-              f"{plain_full[name]:.0f} ms)", flush=True)
+              f"{ABLATION_CHECK_STEPS} steps on {B} and on {RAGGED_LANES} lanes, `{whole}` at "
+              f"{steps} steps (plain {plain_full[name]:.0f} ms)", flush=True)
         if name == "walk_ablation":
-            ragged = wk[:RAGGED_LANES].contiguous()
-            for v in variants:
-                compare(fn, variants, v, ABLATION_CHECK_STEPS, ragged)
-            # the thread-per-lane kernel's `full` (K7's `scan`) computes the same
-            scan = walk_ablate.walk_row_select("scan", wk, *t, steps)
+            # K7's `search` computes the same function through other match code
+            search = walk_ablate.walk_row_select("search", wk, *t, steps)
             torch.cuda.synchronize()
-            if not all(torch.equal(x, y) for x, y in zip(got, scan)):
-                fail(f"walk_ablation[full] differs from walk_row_select[scan] at {steps} steps")
-            print(f"experiment {name}: {len(variants)} variants equal their plain versions on "
-                  f"{RAGGED_LANES} lanes; `full` equals the thread-per-lane kernel's "
-                  f"(walk_row_select[scan]) bit for bit at {steps} steps", flush=True)
-            del scan
-        if name == "walk_row_select":
-            exact["scan"] = got
+            if not all(torch.equal(x, y) for x, y in zip(got, search)):
+                fail(f"walk_ablation[full] differs from walk_row_select[search] at {steps} steps")
+            print(f"experiment {name}: `full` equals walk_row_select[search] bit for bit at "
+                  f"{steps} steps", flush=True)
+            del search
+        else:
+            exact_agree(short, f"at {ABLATION_CHECK_STEPS} steps on {B} lanes")
+            exact_agree(short_ragged, f"at {ABLATION_CHECK_STEPS} steps on {RAGGED_LANES} lanes")
+            full = {"scan": got}
             for v in walk_ablate.ROW_SELECT_EXACT[1:]:
-                exact[v] = fn(v, wk, *t, steps)
+                full[v] = fn(v, wk, *t, steps)
             torch.cuda.synchronize()
-            for v in walk_ablate.ROW_SELECT_EXACT[1:]:
-                if not all(torch.equal(x, y) for x, y in zip(exact[v], exact["scan"])):
-                    fail(f"walk_row_select[{v}] differs from `scan` at {steps} steps")
-            print(f"experiment {name}: scan, search and global agree bit for bit at {steps} "
+            exact_agree(full, f"at {steps} steps")
+            print(f"experiment {name}: scan, search and global agree bit for bit at "
+                  f"{ABLATION_CHECK_STEPS} steps on {B} and {RAGGED_LANES} lanes and at {steps} "
                   "steps", flush=True)
-    del exact, got
+            del full
+        del got, short, short_ragged
 
     zero_counters()
     res = walk_ablate.measure_step_costs(sim.tables, dev, launches=TIMED_LAUNCHES)
@@ -1086,7 +1106,6 @@ def phase_experiments(prefix: str, ref: str, card: str):
               "walk_row_select": dict(walk_ablate.walk_row_select.launches_by_variant)}
     if not res["exact_variants_agree"]:
         fail("measure_step_costs: the exact row-select variants disagree")
-    per_thread = res["thread_per_lane_full"]
     results = []
     for name, fn, variants, steps, whole, replaces in experiments:
         key = "ablation" if name == "walk_ablation" else "row_select"
@@ -1098,14 +1117,13 @@ def phase_experiments(prefix: str, ref: str, card: str):
             row = {
                 "name": f"{name}[{v}]", "route": "cuda",
                 "source": "nanosim_tpu_torch/csrc/walk_ablate.cu", "replaces": replaces,
-                "kernel": kernels[name], "B": B, "E": steps, "launches": counts[name][v],
-                "max_abs_err": 0.0, "ms": r["ms"], "ns_per_lane_step": r["ns_per_lane_step"],
+                "kernel": "fixed_walk_warp_kernel", "B": B, "E": steps,
+                "launches": counts[name][v], "max_abs_err": 0.0, "ms": r["ms"],
+                "ns_per_lane_step": r["ns_per_lane_step"],
                 "ns_per_serial_step": r["ns_per_serial_step"],
                 "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
                 "path": "experiments",
             }
-            if name == "walk_ablation":
-                row["thread_per_lane_full_ms"] = per_thread["ms"]
             if v == whole:
                 row.update(plain_ms=plain_full[name], role="record")
             else:  # the plain version of the other variants ran at the short check only
@@ -1116,24 +1134,21 @@ def phase_experiments(prefix: str, ref: str, card: str):
                   f"lanes, {r['ns_per_lane_step']:.4f} ns per lane-step, "
                   f"{r['ns_per_serial_step']:.1f} ns per serial step (bound {bound:.4f} ms by "
                   f"{bound_by}, {r['ms'] / bound:.1f}x); launches {counts[name][v]}", flush=True)
-    print(f"experiment walk_ablation: the thread-per-lane kernel's `full` (walk_row_select[scan] "
-          f"at {per_thread['steps']} steps) {per_thread['ms']:.3f} ms, "
-          f"{per_thread['ns_per_serial_step']:.1f} ns per serial step; the warp-per-lane `full` "
-          f"takes {res['ablation']['full']['ms'] / per_thread['ms']:.3f} of it ({card})",
-          flush=True)
-    print("step cost differences (ms per launch of "
-          f"{walk_ablate.ABLATION_STEPS} steps x {B} lanes, {card}): "
-          + ", ".join(f"{k} = {v:.3f}" for k, v in res["differences_ms"].items()), flush=True)
+    for label, key, steps in (
+            ("step cost", "differences_ms", walk_ablate.ABLATION_STEPS),
+            ("row select", "row_select_differences_ms", walk_ablate.ROW_SELECT_STEPS)):
+        print(f"{label} differences (ms per launch of {steps} steps x {B} lanes, {card}): "
+              + ", ".join(f"{k} = {v:.3f}" for k, v in res[key].items()), flush=True)
     return results
 
 
 def _run_sim(ref, prefix, out, n, batch, fastq, device, seed=SEED, dna_type="linear",
-             kmer_bias=None, chimeric=False):
+             kmer_bias=None, chimeric=False, **kw):
     from nanosim_tpu_torch.sim.run import simulate_genome
 
     return simulate_genome(ref, prefix, out, n, fastq=fastq, seed=seed, batch=batch,
                            device=device, dna_type=dna_type, kmer_bias=kmer_bias,
-                           chimeric=chimeric)
+                           chimeric=chimeric, **kw)
 
 
 FILES = ("_aligned_reads.fastq", "_aligned_error_profile", "_unaligned_reads.fastq")
@@ -1169,27 +1184,35 @@ def phase_cuda_vs_cpu(d: str, only_chimeric: bool = False):
     fixtures.make_reference_fasta(hp_ref, [100000] * 4, seed=14, hp_bias=0.6)
     hp_circ = os.path.join(d, "small", "hp_circ.fa")
     fixtures.make_reference_fasta(hp_circ, [200000], seed=15, hp_bias=0.6)
-    for label, r, dna, recon, k, chi in (
-            ("linear", ref, "linear", None, None, False),
-            ("circular", circ, "circular", None, None, False),
-            ("linear NANOSIM_TPU_RECON=0", ref, "linear", "0", None, False),
-            ("-hp linear", hp_ref, "linear", None, HP_K, False),
-            ("-hp circular", hp_circ, "circular", None, HP_K, False),
-            ("-hp linear NANOSIM_TPU_RECON=0", hp_ref, "linear", "0", HP_K, False),
-            ("--chimeric linear", ref, "linear", None, None, True),
-            ("--chimeric circular", circ, "circular", None, None, True),
-            ("--chimeric linear NANOSIM_TPU_RECON=0", ref, "linear", "0", None, True),
-            ("--chimeric -hp circular", hp_circ, "circular", None, HP_K, True)):
+    # -med/-sd: lognormal lengths about the small model's (mean 700, sd 250)
+    ln = dict(median_len=650, sd_len=0.35)
+    for label, r, dna, recon, k, chi, kw in (
+            ("linear", ref, "linear", None, None, False, {}),
+            ("circular", circ, "circular", None, None, False, {}),
+            ("linear NANOSIM_TPU_RECON=0", ref, "linear", "0", None, False, {}),
+            ("-hp linear", hp_ref, "linear", None, HP_K, False, {}),
+            ("-hp circular", hp_circ, "circular", None, HP_K, False, {}),
+            ("-hp linear NANOSIM_TPU_RECON=0", hp_ref, "linear", "0", HP_K, False, {}),
+            ("--chimeric linear", ref, "linear", None, None, True, {}),
+            ("--chimeric circular", circ, "circular", None, None, True, {}),
+            ("--chimeric linear NANOSIM_TPU_RECON=0", ref, "linear", "0", None, True, {}),
+            ("--chimeric -hp circular", hp_circ, "circular", None, HP_K, True, {}),
+            ("-med/-sd linear", ref, "linear", None, None, False, ln),
+            ("-med/-sd circular", circ, "circular", None, None, False, ln),
+            ("-med/-sd linear NANOSIM_TPU_RECON=0", ref, "linear", "0", None, False, ln),
+            ("-med/-sd --perfect linear", ref, "linear", None, None, False,
+             dict(ln, perfect=True))):
         if only_chimeric and not chi:
             continue
         outs = {}
+        files = FILES[:2] if kw.get("perfect") else FILES  # perfect reads: no unaligned pass
         with recon_env(recon):
             for dev in ("cpu", "cuda"):
-                out = os.path.join(d, "small", f"{dna}{recon or ''}{'_hp' if k else ''}"
-                                               f"{'_chi' if chi else ''}_{dev}")
+                out = os.path.join(d, "small", label.replace(" ", "_").replace("/", "") + "_"
+                                   + dev)
                 _run_sim(r, prefix, out, 400, 64, True, dev, dna_type=dna, kmer_bias=k,
-                         chimeric=chi)
-                outs[dev] = [sha(out + s) for s in FILES]
+                         chimeric=chi, **kw)
+                outs[dev] = [sha(out + s) for s in files]
         if outs["cpu"] != outs["cuda"]:
             fail(f"small {label} run: CUDA output differs from the CPU output: {outs}")
         print(f"small {label} run: CUDA files byte-identical to the CPU path", flush=True)
@@ -1349,12 +1372,12 @@ def timed_hp_log(seconds: list):
 
 def phase_path(label: str, d: str, prefix: str, ref: str, n: int, card: str,
                dna_type: str, kernels, kmer_bias=None, traced_rerun: bool = True,
-               batch: int = BATCH, chimeric: bool = False):
-    """Drive one path through `simulate_genome(device="cuda")` with the
-    counters zeroed just before and read just after; every kernel in
-    `kernels` must have launched, no lane may have needed the checksum
-    fallback, the record counts must match, ref_base must match the genome,
-    and a traced same-seed rerun must give the same bytes."""
+               batch: int = BATCH, chimeric: bool = False, **kw):
+    """Drive one path through `simulate_genome(device="cuda")` (`kw`: more
+    of its options) with the counters zeroed just before and read just
+    after; every kernel in `kernels` must have launched, no lane may have
+    needed the checksum fallback, the record counts must match, ref_base must
+    match the genome, and a traced same-seed rerun must give the same bytes."""
     import torch
 
     from nanosim_tpu_torch.io.genome import PackedGenome
@@ -1367,7 +1390,7 @@ def phase_path(label: str, d: str, prefix: str, ref: str, n: int, card: str,
     t0 = time.time()
     with timed_hp_log(log_s):
         counts = _run_sim(ref, prefix, out1, n, batch, True, "cuda", dna_type=dna_type,
-                          kmer_bias=kmer_bias, chimeric=chimeric)
+                          kmer_bias=kmer_bias, chimeric=chimeric, **kw)
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = read_counters()
@@ -1411,7 +1434,7 @@ def phase_path(label: str, d: str, prefix: str, ref: str, n: int, card: str,
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _run_sim(ref, prefix, out2, n, batch, True, "cuda", dna_type=dna_type,
-                 kmer_bias=kmer_bias, chimeric=chimeric)
+                 kmer_bias=kmer_bias, chimeric=chimeric, **kw)
         torch.cuda.synchronize()
     dt2 = time.time() - t0
     for s in FILES:
@@ -2165,22 +2188,27 @@ def phase_meta_cuda_vs_cpu(d: str):
     """Phase 16: the metagenome at a small size (three species, two samples of
     300 and 200 reads, batch 64, so that the species quota crosses batches),
     CUDA against CPU: byte-identical files for plain reads, `--chimeric` on
-    Route A and with NANOSIM_TPU_RECON=0, `--perfect` and `-hp -k 6`."""
+    Route A and with NANOSIM_TPU_RECON=0, `--perfect` and `-hp -k 6`; and
+    `-med/-sd` (lognormal lengths, non-chimeric) on two species."""
     fx = make_meta_fixture(os.path.join(d, "meta_small"),
                            [[150000], [100000, 40000], [120000]], 700, 250, 300, 1.9,
                            (300, 200), ((60, 20), (30, 50), (10, 30)), hp_bias=0.5)
+    fx2 = make_meta_fixture(os.path.join(d, "meta_small2"), [[150000], [100000, 40000]], 700,
+                            250, 300, 1.9, (300, 200), ((70, 40), (30, 60)))
     samples = ("sample0", "sample1")
-    for label, recon, kw in (
-            ("metagenome", None, {}),
-            ("metagenome --chimeric", None, dict(chimeric=True)),
-            ("metagenome --chimeric NANOSIM_TPU_RECON=0", "0", dict(chimeric=True)),
-            ("metagenome --perfect", None, dict(perfect=True)),
-            ("metagenome -hp -k 6", None, dict(kmer_bias=HP_K, homopolymer=True))):
+    for label, recon, f, kw in (
+            ("metagenome", None, fx, {}),
+            ("metagenome --chimeric", None, fx, dict(chimeric=True)),
+            ("metagenome --chimeric NANOSIM_TPU_RECON=0", "0", fx, dict(chimeric=True)),
+            ("metagenome --perfect", None, fx, dict(perfect=True)),
+            ("metagenome -hp -k 6", None, fx, dict(kmer_bias=HP_K, homopolymer=True)),
+            ("metagenome -med/-sd (two species)", None, fx2, dict(median_len=650, sd_len=0.35))):
         outs = {}
         with recon_env(recon):
             for dev in ("cpu", "cuda"):
-                out = os.path.join(d, "meta_small", label.replace(" ", "_"), dev, "sim")
-                _run_meta(fx, out, 64, dev, **kw)
+                out = os.path.join(d, "meta_small", label.replace(" ", "_").replace("/", ""),
+                                   dev, "sim")
+                _run_meta(f, out, 64, dev, **kw)
                 outs[dev] = _meta_shas(out, samples, kw.get("perfect", False))
         if outs["cpu"] != outs["cuda"]:
             fail(f"small {label} run: CUDA output differs from the CPU output: {outs}")
@@ -2391,10 +2419,10 @@ def _launches_by_name(k: dict, launches: dict) -> int:
 def attach_launches(cases, by_path: dict, recon0_of: dict, trx_paths: dict, meta_of=None):
     """Give every kernel row of a path its launches on that path's run (and
     on the RECON=0 run beside it); fail for a recorded row whose kernel that
-    run did not launch at its shape.  `meta_of` maps a path whose shapes the
-    metagenome path shares to {key: the metagenome run's launches}: the
+    run did not launch at its shape.  `meta_of` maps a path whose shapes
+    another run shares to {key: (that run's label, its launches)}: the
     metagenome's Route A has the chimeric path's shapes, its RECON=0 run the
-    chimeric circular path's."""
+    chimeric circular path's, and the -med/-sd path the main path's."""
     for k in cases:
         if not k["role"]:
             continue
@@ -2403,11 +2431,11 @@ def attach_launches(cases, by_path: dict, recon0_of: dict, trx_paths: dict, meta
             k["launches_recon0"] = _path_launches(k, recon0_of[k["path"]])
         if k["role"] == "record" and k["launches"] == 0:
             fail(f"{k['name']} was not launched on the {k['path']} path")
-        for key, got in (meta_of or {}).get(k["path"], {}).items():
+        for key, (label, got) in (meta_of or {}).get(k["path"], {}).items():
             k[key] = _path_launches(k, got)
             if k["role"] == "record" and k[key] == 0:
                 fail(f"{k['name']} was not launched at its {k['path']} shape on the "
-                     f"metagenome path ({key})")
+                     f"{label} path ({key})")
         if k["path"] in trx_paths:
             # every transcriptome path's launches of this kernel, at any shape
             k["launches_by_transcriptome_path"] = {
@@ -2514,13 +2542,18 @@ def main():
         experiments += phase_gather_window(card)
         phase_meta_cuda_vs_cpu(d)
         meta_l, meta_recon0_l, mrate1, mrate2 = phase_metagenome_path(d, card)
+        ln_l, lrate1, lrate2 = phase_path(
+            "-med/-sd", d, prefix, ref, N_READS, card, "linear", ("aligned", "unaligned"),
+            median_len=LN_MEDIAN, sd_len=LN_SD)
     if chi_l["packed_spills"] != 0:
         fail(f"{chi_l['packed_spills']} chimeric batches spilled their packed walk lanes")
     by_path = {"main": main_l, "circular": circ_l, "-hp": hp_l, "chimeric": chi_l,
                "chimeric circular": chic_l, "chimeric -hp": chih_l, **trx_paths}
     recon0_of = {"circular": recon0_l, "-hp": hp_recon0_l, "chimeric circular": chi_recon0_l}
-    meta_of = {"chimeric": {"launches_metagenome": meta_l},
-               "chimeric circular": {"launches_metagenome_recon0": meta_recon0_l}}
+    meta_of = {"chimeric": {"launches_metagenome": ("metagenome", meta_l)},
+               "chimeric circular": {"launches_metagenome_recon0": ("metagenome RECON=0",
+                                                                   meta_recon0_l)},
+               "main": {"launches_lognormal": ("-med/-sd", ln_l)}}
     attach_launches(cases, by_path, recon0_of, trx_paths, meta_of)
     cases += experiments
     print(f"main path reads/s: {rate1:.1f}, {rate2:.1f} traced; circular path reads/s: "
@@ -2537,6 +2570,8 @@ def main():
         for label, (r1, r2) in trx_rates.items())), flush=True)
     print(f"metagenome path reads/s (batch {CHI_BATCH}, --chimeric): {mrate1:.1f}, "
           f"{mrate2:.1f} traced ({card})", flush=True)
+    print(f"-med {LN_MEDIAN} -sd {LN_SD} path reads/s: {lrate1:.1f}, {lrate2:.1f} traced ({card})",
+          flush=True)
     print(json.dumps({"kernel_cases": [k for k in cases if k["role"] != "record"]}))
     print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
                                   for k in cases if k["role"] == "record"]}))

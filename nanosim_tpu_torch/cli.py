@@ -3,14 +3,15 @@
 defaults and validation messages.  The PyTorch package runs it on the card.
 
 Ported so far: the genome sub-command with linear and circular DNA
-(`-dna_type circular`), KDE read lengths, FASTA/FASTQ with the error profile,
+(`-dna_type circular`), KDE or lognormal (`-med/-sd`) read lengths, a read
+count from a coverage (`-x`), FASTA/FASTQ with the error profile,
 homopolymer mode (`-hp -k`), chimeric reads (`--chimeric`), perfect reads
 (`--perfect`) and `--resume`; the transcriptome sub-command (cDNA, direct RNA
-with `--uracil`, polyA tails, intron retention, `-hp -k`, `--perfect`,
+with `--uracil`, polyA tails, intron retention, `-hp -k`, `--perfect`, `-x`,
 `--resume`); the metagenome sub-command (multi-species abundance with the
 species-quota feedback, `--abun_var`, `--chimeric`, `--perfect`, `-hp -k`,
-`--resume`).  The options not ported yet (-med/-sd, -x, multi-host) say so
-and exit non-zero.
+`-med/-sd`, `--resume`).  The option not ported yet (multi-host,
+`--num_hosts`) says so and exits non-zero.
 """
 
 from __future__ import annotations
@@ -182,18 +183,20 @@ def main(argv=None):
     if args.perfect and args.chimeric:
         print("\nPerfect reads cannot be chimeric\n")
         sys.exit(1)
-    for flag, what in ((median is not None, "-med/-sd"), (args.coverage is not None, "-x"),
-                       (args.num_hosts > 1, "--num_hosts")):
-        if flag:
-            _not_ported(what)
+    if args.num_hosts > 1:
+        _not_ported("--num_hosts")
 
-    from .sim.run import simulate_genome
+    from .sim.run import calculate_read_number_from_coverage, simulate_genome
 
+    number = args.number
+    if args.coverage is not None:
+        number = calculate_read_number_from_coverage(args.ref_g, args.model_prefix,
+                                                     args.coverage)
     simulate_genome(
         args.ref_g,
         args.model_prefix,
         args.output,
-        args.number,
+        number,
         fastq=args.fastq,
         perfect=args.perfect,
         chimeric=args.chimeric,
@@ -202,6 +205,8 @@ def main(argv=None):
         dna_type=args.dna_type,
         min_len=args.min_len,
         max_len=args.max_len,
+        median_len=median,
+        sd_len=sd,
         seed=seed,
         batch=args.batch,
         resume=args.resume,
@@ -216,19 +221,23 @@ def _transcriptome(args, seed: int):
     if args.polya and args.basecaller is None:
         print("\nPlease input basecaller to simulate polyA tails from.\n")
         sys.exit(1)
-    for flag, what in ((args.coverage is not None, "-x"), (args.num_hosts > 1, "--num_hosts")):
-        if flag:
-            _not_ported(what)
+    if args.num_hosts > 1:
+        _not_ported("--num_hosts")
 
+    from .sim.run import calculate_read_number_from_coverage
     from .sim.run_transcriptome import simulate_transcriptome
 
+    number = args.number
+    if args.coverage is not None:
+        number = calculate_read_number_from_coverage(args.ref_t, args.model_prefix,
+                                                     args.coverage)
     simulate_transcriptome(
         args.ref_t,
         args.ref_g,
         args.exp,
         args.model_prefix,
         args.output,
-        args.number,
+        number,
         perfect=args.perfect,
         fastq=args.fastq,
         kmer_bias=args.KmerBias if args.homopolymer else None,
@@ -256,10 +265,8 @@ def _metagenome(args, seed: int):
     if args.perfect and args.chimeric:
         print("\nPerfect reads cannot be chimeric\n")
         sys.exit(1)
-    for flag, what in ((args.median_len is not None, "-med/-sd"),
-                       (args.num_hosts > 1, "--num_hosts")):
-        if flag:
-            _not_ported(what)
+    if args.num_hosts > 1:
+        _not_ported("--num_hosts")
 
     from .sim.run_metagenome import simulate_metagenome
 
@@ -278,6 +285,8 @@ def _metagenome(args, seed: int):
         abun_var=args.abun_var,
         min_len=args.min_len,
         max_len=args.max_len,
+        median_len=args.median_len,
+        sd_len=args.sd_len,
         seed=seed,
         batch=args.batch,
         resume=args.resume,

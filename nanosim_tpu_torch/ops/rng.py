@@ -163,13 +163,20 @@ def uniform_per_slot(slot_keys_arr: torch.Tensor, site: int, shape=()) -> torch.
 _NORMAL_LO = -0.99999994  # nextafter(-1, 0) in float32
 
 
-def normal_per_slot(slot_keys_arr: torch.Tensor, site: int, shape=()) -> torch.Tensor:
-    """jax.random.normal: sqrt(2) * erfinv(u), u uniform on (nextafter(-1, 0), 1)."""
+def erfinv_normal_per_slot(slot_keys_arr: torch.Tensor, site: int, shape=()) -> torch.Tensor:
+    """erfinv(u) of jax.random.normal's draw: the normal before its factor
+    sqrt(2), u uniform on (nextafter(-1, 0), 1)."""
     f = uniform_per_slot(slot_keys_arr, site, shape)
     lo = torch.tensor(_NORMAL_LO, dtype=torch.float32, device=f.device)
     u = torch.maximum(f * 2.0 + lo, lo)
-    sqrt2 = torch.tensor(2.0, dtype=torch.float32, device=f.device).sqrt()
-    return sqrt2 * xla_math.erfinv_f32(u)
+    return xla_math.erfinv_f32(u)
+
+
+def normal_per_slot(slot_keys_arr: torch.Tensor, site: int, shape=()) -> torch.Tensor:
+    """jax.random.normal: sqrt(2) * erfinv(u), u uniform on (nextafter(-1, 0), 1)."""
+    e = erfinv_normal_per_slot(slot_keys_arr, site, shape)
+    sqrt2 = torch.tensor(2.0, dtype=torch.float32, device=e.device).sqrt()
+    return sqrt2 * e
 
 
 def uniform_at(slot_keys_arr: torch.Tensor, site: int, pos: torch.Tensor, n: int) -> torch.Tensor:

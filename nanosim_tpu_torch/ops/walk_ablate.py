@@ -2,11 +2,9 @@
 (csrc/walk_ablate.cu) and its plain PyTorch version: the measuring kernels
 that say what one walk step costs.
 
-Two experiments, each with its own kernel (`LAUNCHERS`): the step ablation
-runs the aligned walk's design, one warp per read lane
-(`fixed_walk_warp_kernel`, `WARP_LANES_PER_BLOCK` lanes a block); the
-row-select experiment the first design, one thread per lane
-(`fixed_walk_kernel`).
+Two experiments on one kernel, the aligned walk's design: one warp per read
+lane (`fixed_walk_warp_kernel`, `WARP_LANES_PER_BLOCK` lanes a block), each
+variant an instance of it behind one C launcher (`LAUNCHER`).
 
 * `walk_ablation(variant, ...)`: which part of a step costs what.  `full` is
   the whole step; `nothreefry` fixes the three uniforms at 0.5; `nodma` stores
@@ -17,11 +15,12 @@ row-select experiment the first design, one thread per lane
   table work at all (``mstep = int(u_match * 20)``).
 * `walk_row_select(variant, ...)`: how a lane finds the next match length
   from (bin, u_match).  `scan` counts over all K breakpoints of the row in
-  shared memory (what csrc/walk.cu does); `search` is a binary search over
-  the row's n_bk sorted breakpoints in shared memory; `global` is the same
-  search through the read-only cache with the match tables not staged; `min`
-  does no match-table work.  `scan`, `search` and `global` compute the same
-  function and must agree bit for bit.
+  shared memory with the ballot and reduction of csrc/walk.cu (it is the
+  ablation's `full`); `search` is the warp's 32-ary search of the row's n_bk
+  sorted breakpoints in shared memory; `global` is the same search through
+  the read-only cache with the match tables not staged; `min` keeps the
+  error tables and does no match-table work.  `scan`, `search` and `global`
+  compute the same function and must agree bit for bit.
 
 Every lane starts at ``pos = prev_match = first_match`` in state 0 with the
 same `m_ref` (10**8 in the experiments, so that every lane takes every step);
@@ -69,18 +68,17 @@ ROW_SELECT_VARIANTS = {
     "min": (True, True, "none", True),
 }
 ROW_SELECT_EXACT = ("scan", "search", "global")
-# the C launcher of csrc/walk_ablate.cu each experiment's variants go through;
-# its dispatch instantiates exactly the switches of the experiment's variants
-LAUNCHERS = {"walk_ablation": "launch_fixed_walk_warp", "walk_row_select": "launch_fixed_walk"}
+# the C launcher of csrc/walk_ablate.cu both experiments' variants go through;
+# its dispatch instantiates exactly the switches of their variants
+LAUNCHER = "launch_fixed_walk_warp"
 WARP_LANES_PER_BLOCK = 8  # csrc/walk_ablate.cu::kWarpLanes
 
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in LAUNCHERS.values():
-        fn = getattr(lib, name)
-        fn.argtypes = [i, i, i, i, p, i, i, p, i, p, p, p, p, i, i, p, i, i, p, p, p, p]
-        fn.restype = ctypes.c_int
+    fn = getattr(lib, LAUNCHER)
+    fn.argtypes = [i, i, i, i, p, i, i, p, i, p, p, p, p, i, i, p, i, i, p, p, p, p]
+    fn.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("walk_ablate.cu", _bind)
@@ -143,11 +141,11 @@ def fixed_walk_plain(switches, walk_keys, match_markov, mixtures, trans, n_steps
     return words, pos + l_new + n_events, _as_i32(acc)
 
 
-def _fixed_walk(launcher: str, switches, walk_keys, match_markov, mixtures, trans,
-                n_steps: int, m_ref: int, first_match: int):
-    """Launch `launcher`'s kernel instance for `switches` on CUDA tensors."""
+def _fixed_walk(switches, walk_keys, match_markov, mixtures, trans, n_steps: int, m_ref: int,
+                first_match: int):
+    """Launch the kernel instance for `switches` on CUDA tensors."""
     threefry, err_tables, match, store = switches
-    launch = getattr(LIBRARY.load(), launcher)
+    launch = getattr(LIBRARY.load(), LAUNCHER)
     dev = walk_keys.device
     B, E = walk_keys.shape[0], int(n_steps)
     wk = _as_u32_words(walk_keys)
@@ -184,7 +182,7 @@ def _experiment(wrapper, variants, variant, walk_keys, match_markov, mixtures, t
             first_match)
     if not walk_keys.is_cuda:
         return fixed_walk_plain(*args)
-    out = _fixed_walk(LAUNCHERS[wrapper.__name__], *args)
+    out = _fixed_walk(*args)
     wrapper.launches += 1
     wrapper.launches_by_variant[variant] = wrapper.launches_by_variant.get(variant, 0) + 1
     return out
@@ -233,12 +231,12 @@ def measure_step_costs(tables, device="cuda", n_lanes: int = N_LANES,
     """Run both experiments on the card: every variant's time per launch
     (CUDA events, `launches` launches after a warm-up), per lane-step and per
     serial step (the time over the steps: every lane takes every step); the
-    thread-per-lane kernel's whole step at the ablation's steps (the
-    row-select `scan`, the same function as `full`); the differences that
-    split a step (hashes full - nothreefry, store full - nodma, error tables
-    full - onlymatch, match tables onlymatch - min, all tables full - min);
-    and whether the exact row-select variants agree bit for bit.  `tables` is
-    a SimTables on `device`.  Raises without a CUDA card."""
+    differences that split a step (hashes full - nothreefry, store full -
+    nodma, error tables full - onlymatch, match tables onlymatch - min, all
+    tables full - min) and the row-select variants' against `scan` (search -
+    scan, global - scan, min - scan); and whether the exact row-select
+    variants agree bit for bit.  `tables` is a SimTables on `device`.
+    Raises without a CUDA card."""
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("no CUDA card: the walk experiments measure the card")
@@ -256,8 +254,7 @@ def measure_step_costs(tables, device="cuda", n_lanes: int = N_LANES,
             ("row_select", walk_row_select, ROW_SELECT_VARIANTS, row_select_steps)):
         for v in variants:
             out[name][v] = timed(fn, v, steps)
-    a = out["ablation"]
-    out["thread_per_lane_full"] = timed(walk_row_select, "scan", ablation_steps)
+    a, r = out["ablation"], out["row_select"]
     out["differences_ms"] = {
         "full - nothreefry": a["full"]["ms"] - a["nothreefry"]["ms"],
         "full - nodma": a["full"]["ms"] - a["nodma"]["ms"],
@@ -265,6 +262,8 @@ def measure_step_costs(tables, device="cuda", n_lanes: int = N_LANES,
         "onlymatch - min": a["onlymatch"]["ms"] - a["min"]["ms"],
         "full - min": a["full"]["ms"] - a["min"]["ms"],
     }
+    out["row_select_differences_ms"] = {
+        f"{v} - scan": r[v]["ms"] - r["scan"]["ms"] for v in ("search", "global", "min")}
     got = {v: walk_row_select(v, wk, *t, row_select_steps) for v in ROW_SELECT_EXACT}
     torch.cuda.synchronize()
     out["exact_variants_agree"] = all(
@@ -287,7 +286,6 @@ def main(argv=None):
     prof = profile.load_profile(args.model_prefix, mode="genome", chimeric=True)
     res = measure_step_costs(build_tables(prof, torch.device("cuda")))
     rows = [(exp, v, r) for exp in ("ablation", "row_select") for v, r in res[exp].items()]
-    rows.append(("thread per lane", "full", res["thread_per_lane_full"]))
     for exp, v, r in rows:
         print(f"{exp} {v}: {r['ms']:.3f} ms for {r['steps']} steps x {res['n_lanes']} lanes, "
               f"{r['ns_per_lane_step']:.4f} ns per lane-step, {r['ns_per_serial_step']:.1f} ns "

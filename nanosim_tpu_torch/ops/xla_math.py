@@ -88,6 +88,51 @@ def log_f32(v: torch.Tensor) -> torch.Tensor:
     return torch.where((v < 0) | torch.isnan(v), torch.full_like(v, float("nan")), x)
 
 
+# XLA CPU's vectorized float32 exp: the clamp, the reduction constants and
+# the polynomial of Cephes' expf
+_EXP_LO, _EXP_HI = -87.8, 88.8
+_LOG2E = 1.44269504088896341
+_EXP_C1 = 0.693359375
+_EXP_C2 = -2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+          1.6666665459e-1, 0.5)
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 exp, as its code generation emits it (read from the
+    x86 code of a jitted ``jnp.exp(z * sd + c)``): x clamped to [-87.8, 88.8];
+    n = floor(x * log2(e) + 0.5) clamped to [-127, 127]; r = x - n * C1 -
+    n * C2; y = 1 + (r + r**2 * p(r)) with p of degree 5; the result y * 2**n,
+    2**n built by adding n << 23 to the bits of 1.0.  Every multiply-add pair
+    is one fused multiply-add but the r**2 product and the final ``+ 1`` and
+    ``* 2**n``.  A NaN stays NaN; a subnormal result is flushed to zero."""
+    x = torch.minimum(torch.maximum(x, _f32(_EXP_LO, x)), _f32(_EXP_HI, x))
+    fx = torch.floor(fma32(x, _f32(_LOG2E, x), _f32(0.5, x)))
+    fx = fx.clamp(-127.0, 127.0)
+    r = fma32(-fx, _f32(_EXP_C1, x), x)
+    r = fma32(-fx, _f32(_EXP_C2, x), r)
+    p = torch.full_like(x, _EXP_P[0])
+    for c in _EXP_P[1:]:
+        p = fma32(p, r, _f32(c, x))
+    y = fma32(p, r * r, r) + 1.0
+    n = torch.nan_to_num(fx, nan=0.0).to(torch.int32)
+    out = y * ((n << 23) + (127 << 23)).view(torch.float32)
+    return torch.where(out.abs() < 1.17549435e-38, torch.zeros_like(out), out)
+
+
+def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 -> int32 conversion: truncation toward zero that
+    saturates at the int32 range, NaN -> 0 (torch's own gives INT_MIN for
+    every value out of range)."""
+    lim = torch.tensor(2.0**31, dtype=torch.float32, device=x.device)
+    big = x >= lim
+    small = x < -lim
+    inside = torch.where(big | small | torch.isnan(x), torch.zeros_like(x), x)
+    out = inside.to(torch.int32)
+    out = torch.where(big, torch.full_like(out, 2**31 - 1), out)
+    return torch.where(small, torch.full_like(out, -2**31), out)
+
+
 _L1P_DEN = (1., 1.5062909083469192043167E1, 8.3047565967967209469434E1,
             2.2176239823732856465394E2, 3.0909872225312059774938E2,
             2.1642788614495947685003E2, 6.0118660497603843919306E1)

@@ -26,8 +26,8 @@ checksum and emits with the C++ emitter.  Circular DNA, NANOSIM_TPU_RECON=0
 and homopolymer mode run the read-emitting program and transfer the reads.
 
 The metagenome runs this program with per-segment species (sim/run_metagenome.py;
-a plain metagenome run is a one-segment batch), also with perfect reads.  The
-lognormal median/sd lengths are not ported yet.
+a plain metagenome run is a one-segment batch), also with perfect reads and
+with the lognormal median/sd lengths (`-med/-sd`, one segment, never packed).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ from . import extract
 from .bundles import SimTables, build_tables, plan_event_budget, plan_ht_capacity, plan_ref_capacity
 from .compact import event_checksum as _ev_checksum  # the host replay recomputes it per lane
 from .genome_mode import (_first_valid, _kde_draw, check_circular, device_of, draw_ht,
-                          run_prefetched, want_recon)
+                          lognormal_len, run_prefetched, want_recon)
 from .unaligned_mode import QCLASS_UNMAPPED
 
 _I32 = torch.int32
@@ -187,9 +187,6 @@ def chimeric_batch(
     # spill->unpacked-re-run path deterministically; None = mean+10-sigma)
     packed_cap: Optional[int] = None,
 ) -> ChimericBatchOut:
-    if median_len is not None:
-        raise NotImplementedError(
-            "chimeric_batch: median_len (the lognormal -med/-sd lengths) is not ported yet")
     assert emit_reads or kmer_bias is None, (
         "meta-only chimeric program supports the plain aligned and perfect "
         "paths (not -hp)"
@@ -222,7 +219,7 @@ def chimeric_batch(
     # count ever exceeds K (vanishingly unlikely at K=2B: mean ~1.33B,
     # sd ~0.6*sqrt(B)), packed_spill is set and the host re-runs the batch
     # through this same program unpacked — acceptance stays slot-pure.
-    packed = packed_walks and not emit_reads and not perfect and S > 1
+    packed = packed_walks and not emit_reads and not perfect and S > 1 and median_len is None
     spill = torch.zeros((), dtype=torch.bool, device=dev)
     if packed:
         # capacity = mean + 10 sigma of the active-pair count (sum of B
@@ -273,7 +270,7 @@ def chimeric_batch(
         ref_f, ref_ok = _first_valid(ref_c, (ref_c >= min_len) & (ref_c <= f32(max_len)))
     else:
         ref_f, ref_ok = _first_valid(ref_c, (ref_c > 0) & (ref_c <= f32(max_len)))
-    m_ref_lane = torch.where(seg_live, ref_f.to(_I32).clamp(0, l_cap), 0)
+    m_ref_lane = torch.where(seg_live, xla_math.f32_to_i32(ref_f).clamp(0, l_cap), 0)
     seg_len_ok = seg_unpack(torch.where(seg_live, ref_ok & (ref_f <= f32(l_cap)), True), True)
     seg_mref_init = seg_unpack(m_ref_lane, 0)
 
@@ -284,6 +281,19 @@ def chimeric_batch(
                                                                           device=dev)
     else:
         remainder, head, tail, ht_ok = draw_ht(sk, tables, ht_cap)
+
+    # --- median/sd lognormal lengths (metagenome/genome, single segment;
+    # simulator.py:832-848) ---
+    if median_len is not None:
+        ln_f = lognormal_len(sk, median_len, sd_len, perfect)
+        if perfect:
+            ok_ln = (ln_f >= min_len) & (ln_f <= f32(max_len))
+        else:
+            ln_f = ln_f - remainder
+            ok_ln = (ln_f > 0) & (ln_f <= f32(max_len))
+        m_ref_lane = torch.where(seg_active, xla_math.f32_to_i32(ln_f).clamp(0, l_cap), 0)
+        seg_len_ok = torch.where(seg_active, ok_ln & (ln_f <= f32(l_cap)), True)
+        seg_mref_init = m_ref_lane  # the median path is never packed
 
     # --- segment error walks on the flattened batch ---
     if perfect:

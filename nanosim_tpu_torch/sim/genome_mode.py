@@ -32,6 +32,7 @@ of batch scheduling.
 from __future__ import annotations
 
 import functools
+import math
 import os
 import types
 from typing import NamedTuple, Optional
@@ -123,6 +124,24 @@ def _kde_draw(sk, site, kde, n_cand=1):
     return out.reshape(u.shape[0], n_cand)
 
 
+def lognormal_len(sk, median_len: float, sd_len: float, perfect: bool) -> torch.Tensor:
+    """The `-med/-sd` length draw (simulator.py:1284-1296), [B] float32 with
+    the JAX package's bits: ``jnp.exp(z * sd_len + jnp.log(c))``, z =
+    rng.normal_per_slot(sk, SITE_LOGNORMAL_LEN), c = median_len for perfect
+    reads and the unaligned pass, median_len + sd_len**2 / 2 otherwise.
+
+    As XLA compiles that expression on the CPU: the log is taken in float64
+    (x64 is on) and rounded to a float32 constant; z is sqrt(2) * erfinv(u),
+    and XLA's simplifier folds the two constant factors into one,
+    ``erfinv(u) * float32(sqrt(2) * sd_len)``; that multiply and the add are
+    one fused multiply-add; the exp is XLA's (xla_math.exp_f32)."""
+    c = median_len if perfect else median_len + sd_len**2 / 2.0
+    e = rng.erfinv_normal_per_slot(sk, rng.SITE_LOGNORMAL_LEN)
+    scale = np.float32(np.float32(math.sqrt(2.0)) * np.float32(sd_len))
+    shift = torch.tensor(math.log(c), dtype=torch.float32, device=e.device)
+    return xla_math.exp_f32(xla_math.fma32(e, torch.tensor(scale, device=e.device), shift))
+
+
 def _first_valid(cands, valid):
     """Pick the first valid candidate per lane; (value, any_valid)."""
     idx = valid.to(torch.int32).argmax(dim=1)
@@ -211,9 +230,12 @@ def genome_batch(
     kmer_bias: Optional[int] = None,
     hp_r_max: int = 256,
     perfect: bool = False,
+    median_len: Optional[float] = None,
+    sd_len: Optional[float] = None,
 ) -> BatchOut:
-    """The aligned-read batch program (KDE lengths): the read-emitting
-    program, or with emit_reads=False the meta-only one.
+    """The aligned-read batch program (KDE lengths, or with median_len the
+    lognormal `-med/-sd` lengths): the read-emitting program, or with
+    emit_reads=False the meta-only one.
 
     Both accept the same lanes: the meta-only program's final length
     filters run on the DEDUP-aware l_new that the read materialization
@@ -235,10 +257,14 @@ def genome_batch(
     f32 = functools.partial(torch.tensor, dtype=torch.float32, device=slots.device)
 
     # --- aligned-region length (simulator.py:1284-1296) ---
-    ref_len_f = _kde_draw(sk, rng.SITE_REF_LENGTH, tables.kde_aligned, 1)[:, 0]
+    lognormal = median_len is not None
+    if lognormal:
+        ref_len_f = lognormal_len(sk, median_len, sd_len, perfect)
+    else:
+        ref_len_f = _kde_draw(sk, rng.SITE_REF_LENGTH, tables.kde_aligned, 1)[:, 0]
     if perfect:
         valid = (ref_len_f >= f32(min_len)) & (ref_len_f <= f32(max_len))
-        m_ref = ref_len_f.to(torch.int32).clamp(0, l_cap)
+        m_ref = xla_math.f32_to_i32(ref_len_f).clamp(0, l_cap)
         middle_ref = l_new = m_ref
         zero = torch.zeros_like(m_ref)
         head = tail = zero
@@ -250,9 +276,11 @@ def genome_batch(
         valid &= ~cap_over
     else:
         remainder, head, tail, ht_ok = draw_ht(sk, tables, ht_cap)
+        if lognormal:
+            ref_len_f = ref_len_f - remainder  # the lognormal draw is the total
         valid = (ht_ok & (ref_len_f > 0) & (ref_len_f <= f32(max_len))
                  & (ref_len_f <= f32(l_cap)))
-        m_ref = ref_len_f.to(torch.int32).clamp(0, l_cap)
+        m_ref = xla_math.f32_to_i32(ref_len_f).clamp(0, l_cap)
 
         walk = error_walk.error_walk(
             sk, m_ref, tables.first_match, tables.match_markov, tables.mixtures, tables.trans,
@@ -545,12 +573,14 @@ class ResumeState:
 class GenomeSimulator:
     """Host driver: batches, slot accounting, acceptance, output.
 
-    Covers KDE lengths with FASTA or FASTQ and the error profile: linear DNA
+    Covers KDE lengths, or with median_len and sd_len the lognormal
+    `-med/-sd` lengths, with FASTA or FASTQ and the error profile: linear DNA
     on the host-reconstruction route, and the read-emitting program for
     circular DNA (a single chromosome) and for NANOSIM_TPU_RECON=0; with
     kmer_bias (homopolymer mode, `-hp -k`) and with perfect (`--perfect`,
-    also with `-hp`) on both routes.  The median/sd lognormal lengths are not
-    ported yet."""
+    also with `-hp`) on both routes.  The port runs one length bucket: the
+    JAX package's bucketed schedule is opt-in, and never taken with
+    median_len."""
 
     def __init__(
         self,
@@ -564,6 +594,8 @@ class GenomeSimulator:
         batch: int = 256,
         kmer_bias: Optional[int] = None,
         perfect: bool = False,
+        median_len: Optional[float] = None,
+        sd_len: Optional[float] = None,
         device="cuda",
     ):
         if fastq and profile.base_quals is None:
@@ -582,6 +614,8 @@ class GenomeSimulator:
         self.batch = batch
         self.kmer_bias = kmer_bias
         self.perfect = perfect
+        self.median_len = median_len
+        self.sd_len = sd_len
 
         self.l_cap = plan_ref_capacity(profile, max_len, genome.max_chrom)
         self.ht_cap = plan_ht_capacity(profile)
@@ -612,6 +646,7 @@ class GenomeSimulator:
             min_len=self.min_len, max_len=self.max_len, fastq=self.fastq,
             circular_dna=self.circular_dna, emit_reads=emit_reads,
             kmer_bias=self.kmer_bias, hp_r_max=hp_r_max, perfect=self.perfect,
+            median_len=self.median_len, sd_len=self.sd_len,
         )
 
     def run(self, n_reads: int, writer, seed: int = 0, max_batches: Optional[int] = None,

@@ -34,6 +34,8 @@ def simulate_genome(
     dna_type: str = "linear",
     min_len: int = 50,
     max_len: float = float("inf"),
+    median_len: Optional[float] = None,
+    sd_len: Optional[float] = None,
     seed: int = 0,
     batch: int = 256,
     resume: bool = False,
@@ -45,10 +47,14 @@ def simulate_genome(
     homopolymer mode (`-hp -k`); chimeric draws a segment count per aligned
     read and joins the segments with gap sequences (`--chimeric`; such a run
     cannot be resumed); perfect reads (`--perfect`) carry no error, no head
-    or tail, and have no unaligned pass.  Returns counters for reporting.
-    Runs on the card unless `device` says otherwise."""
+    or tail, and have no unaligned pass; median_len and sd_len (`-med/-sd`)
+    draw both passes' lengths from a lognormal instead of the model's KDEs.
+    Returns counters for reporting.  Runs on the card unless `device` says
+    otherwise."""
     if perfect and chimeric:
         raise ValueError("Perfect reads cannot be chimeric")
+    if median_len is not None and chimeric:
+        raise ValueError("Lognormal distributed reads cannot be chimeric")
     _log("Read in reference")
     genome = PackedGenome.from_fasta(ref_g, dna_type=dna_type)
     if dna_type == "circular" and genome.n_chrom > 1:
@@ -76,7 +82,8 @@ def simulate_genome(
     else:
         sim = GenomeSimulator(genome, prof, fastq=fastq, circular_dna=circular, min_len=min_len,
                               max_len=max_len, batch=batch, kmer_bias=kmer_bias,
-                              perfect=perfect, device=device)
+                              perfect=perfect, median_len=median_len, sd_len=sd_len,
+                              device=device)
     state_path = out + "_aligned.resume.json"
     resuming = resume and os.path.exists(state_path)
     fw = output.FastxWriter(out + "_aligned_reads" + ext, fastq, append=resuming)
@@ -92,7 +99,8 @@ def simulate_genome(
     if not perfect and n_unaligned > 0:
         _log("Start simulation of random reads")
         usim = UnalignedSimulator(genome, prof, fastq=fastq, circular_dna=circular,
-                                  min_len=min_len, max_len=max_len, batch=batch, device=device)
+                                  min_len=min_len, max_len=max_len, median_len=median_len,
+                                  sd_len=sd_len, batch=batch, device=device)
         ufw = output.FastxWriter(out + "_unaligned_reads" + ext, fastq)
         usim.run(n_unaligned, UnalignedBatchWriter(ufw), seed=seed)
         ufw.close()
@@ -100,3 +108,32 @@ def simulate_genome(
     output.RUN_STATS.report(_log)
     _log("Finished!")
     return {"aligned": n_aligned, "unaligned": 0 if perfect else n_unaligned}
+
+
+def calculate_read_number_from_coverage(reference_path, model_prefix, coverage,
+                                        n_estimation=10_000_000):
+    """Lander/Waterman read count for a requested coverage (`-x`) via Monte
+    Carlo mean read length (calculate_read_number_from_coverage,
+    simulator.py:2024-2068)."""
+    import numpy as np
+
+    from ..profiles import error_model, kde
+
+    reference_size = 0
+    with open(reference_path) as f:
+        for line in f:
+            if not line.startswith(">"):
+                reference_size += len(line.strip())
+
+    alignment_rate = error_model.read_alignment_rate(model_prefix + "_reads_alignment_rate")
+    if alignment_rate is None:
+        alignment_rate = 1.0  # "100%": everything aligned
+
+    rng_np = np.random.default_rng(0)
+    aligned_n = int(n_estimation * alignment_rate / (alignment_rate + 1))
+    k_aligned = kde.load_kde(model_prefix + "_aligned_reads.pkl")
+    samples = k_aligned.sample(rng_np, aligned_n)[:, 0]
+    k_unaligned = kde.load_kde(model_prefix + "_unaligned_length.pkl")
+    samples = np.append(samples, k_unaligned.sample(rng_np, n_estimation - aligned_n)[:, 0])
+    mean = samples.mean()
+    return int(reference_size / mean * coverage)

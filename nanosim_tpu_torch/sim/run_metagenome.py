@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..io.genome import MetagenomeSet
-from ..ops import rng
+from ..ops import rng, xla_math
 from ..profiles import profile as profile_mod
 from . import extract, output
 from .bundles import build_tables, plan_event_budget, plan_ht_capacity, plan_ref_capacity
@@ -143,7 +143,7 @@ def _phase_a_program(base, slots, kde_aligned, *, S, min_len, max_len, l_cap, pe
         ref_f, _ = _first_valid(ref_c, (ref_c >= min_len) & (ref_c <= mx))
     else:
         ref_f, _ = _first_valid(ref_c, (ref_c > 0) & (ref_c <= mx))
-    return u_seg, ref_f.to(torch.int32).clamp(0, l_cap)
+    return u_seg, xla_math.f32_to_i32(ref_f).clamp(0, l_cap)
 
 
 def assign_species_batch(
@@ -223,9 +223,6 @@ class MetagenomeSimulator:
         kmer_bias: Optional[int] = None,
         device="cuda",
     ):
-        if median_len is not None:
-            raise NotImplementedError(
-                "median_len/sd_len (the lognormal -med/-sd lengths) are not ported yet")
         self.device = device_of(device)
         self.mset = mset
         self.genome_host = mset.packed
@@ -282,6 +279,8 @@ class MetagenomeSimulator:
             perfect=perfect,
             kmer_bias=kmer_bias,
             hp_r_max=max(128, self.l_cap // 32),
+            median_len=median_len,
+            sd_len=sd_len,
         )
 
     def batch_fn(self, **overrides):
@@ -496,10 +495,10 @@ def simulate_metagenome(
 ) -> dict:
     """Full metagenome run over all samples (simulator.py:2416-2527), one
     host: per sample `{out}_sample<i>_aligned_reads`, `_aligned_error_profile`
-    and `_unaligned_reads`.  Runs on the card unless `device` says otherwise."""
-    if median_len is not None:
-        raise NotImplementedError(
-            "median_len/sd_len (the lognormal -med/-sd lengths) are not ported yet")
+    and `_unaligned_reads`.  median_len and sd_len (`-med/-sd`) draw the
+    aligned reads' lengths from a lognormal; the unaligned pass keeps its KDE
+    lengths, as in the JAX package.  Runs on the card unless `device` says
+    otherwise."""
     device = device_of(device)
     _log("Read in reference")
     mset = MetagenomeSet.from_genome_list(genome_list, dna_type_list)
@@ -552,6 +551,8 @@ def simulate_metagenome(
             fastq=fastq,
             min_len=min_len,
             max_len=max_len,
+            median_len=median_len,
+            sd_len=sd_len,
             batch=batch,
             kmer_bias=kmer_bias,
             device=device,

@@ -19,14 +19,16 @@ and moves the reads as raw bytes.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops import apply_errors, error_walk, rng, seqops
+from ..ops import apply_errors, error_walk, rng, seqops, xla_math
 from . import extract
 from .bundles import SimTables, build_tables
-from .genome_mode import BatchOut, _kde_draw, check_circular, device_of, want_recon
+from .genome_mode import (BatchOut, _kde_draw, check_circular, device_of, lognormal_len,
+                          want_recon)
 
 QCLASS_UNMAPPED = 4
 
@@ -46,14 +48,21 @@ def unaligned_batch(
     emit_reads: bool = True,
     uracil: bool = False,
     transcriptome_mode: bool = False,
+    median_len: Optional[float] = None,
+    sd_len: Optional[float] = None,
 ) -> BatchOut:
-    """The unaligned-read batch program (KDE lengths): the read-emitting
+    """The unaligned-read batch program (KDE lengths, or with median_len the
+    lognormal `-med/-sd` lengths about the median itself): the read-emitting
     program, or with emit_reads=False the meta-only one."""
     B = slots.shape[0]
     sk = rng.slot_keys(base_key, slots)
 
-    ref_len_f = _kde_draw(sk, rng.SITE_REF_LENGTH, tables.kde_unaligned, 1)[:, 0]
-    m_ref = ref_len_f.to(torch.int32).clamp_min(0)
+    if median_len is not None:
+        ref_len_f = lognormal_len(sk, median_len, sd_len, perfect=True)
+    else:
+        ref_len_f = _kde_draw(sk, rng.SITE_REF_LENGTH, tables.kde_unaligned, 1)[:, 0]
+    # a saturated draw past 2**31 fails m_ref <= l_cap, as in the JAX program
+    m_ref = xla_math.f32_to_i32(ref_len_f).clamp_min(0)
     valid = (ref_len_f > 0) & (m_ref <= l_cap)
 
     m_walk = m_ref.clamp_max(l_cap)
@@ -197,6 +206,8 @@ class UnalignedSimulator:
         circular_dna=False,
         min_len=50,
         max_len=float("inf"),
+        median_len=None,
+        sd_len=None,
         batch=256,
         uracil=False,
         transcriptome_mode=False,
@@ -229,7 +240,8 @@ class UnalignedSimulator:
         self.uracil = uracil
         self.kw = dict(l_cap=l_cap, e_max=self.e_max, min_len=min_len, max_len=max_len,
                        fastq=fastq, circular_dna=circular_dna, uracil=uracil,
-                       transcriptome_mode=transcriptome_mode)
+                       transcriptome_mode=transcriptome_mode, median_len=median_len,
+                       sd_len=sd_len)
         self.batch = batch
 
     def batch_fn(self, emit_reads: bool = True):

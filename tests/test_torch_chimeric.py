@@ -248,12 +248,29 @@ def test_emit_batch_matches_jax(model, kmer_bias):
 
 
 def test_not_ported_parameters_raise(model):
-    """The lognormal -med/-sd lengths are not ported: asking for them raises
-    (metagenome=True and perfect=True run since the metagenome slice)."""
-    _, ts = _sims(model)
-    for kw in (dict(median_len=5000.0, sd_len=1.0),):
-        with pytest.raises(NotImplementedError, match="median_len"):
-            _torch_batch(ts, _slots(), **kw)
+    """The lognormal -med/-sd lengths, once refused here, run: the
+    one-segment program (s_max = 1, as a non-chimeric metagenome runs it)
+    with median_len equals the JAX package's, meta-only and read-emitting,
+    aligned and perfect reads (the lognormal about median + sd**2 / 2 less
+    the head and tail, and about the median)."""
+    js, ts = _sims(model, fastq=True)
+    slots = _slots(2 * BATCH)
+    for perfect in (False, True):
+        for emit in (False, True):
+            kw = dict(median_len=420.0, sd_len=0.35, s_max=1, segment_mean=1.0,
+                      perfect=perfect, emit_reads=emit)
+            jo = jchi.chimeric_batch(
+                jrng.base_key(SEED, jrng.STREAM_ALIGNED), jnp.asarray(slots),
+                species=jnp.zeros((BATCH, 1), jnp.int32), genome=js.genome_dev,
+                tables=js.tables, **{**js.kw, **kw})
+            to = _torch_batch(ts, slots, **kw)
+            _assert_fields_equal(jo, to, ("valid", "total_len", "head", "tail", "n_seg",
+                                          "seg_middle_ref", "seg_l_new", "seg_mref_init",
+                                          "chrom", "local_pos", "is_reversed", "n_events"))
+            if emit:
+                np.testing.assert_array_equal(np.asarray(jo.read), to.read.numpy())
+                np.testing.assert_array_equal(np.asarray(jo.quals), to.quals.numpy())
+            assert int(_np(to.valid).sum()) > BATCH // 3, (perfect, emit)
 
 
 def test_tables_carry_over_from_jax(model):

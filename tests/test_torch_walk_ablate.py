@@ -195,7 +195,7 @@ SOURCE = os.path.join(os.path.dirname(walk_ablate.__file__), os.pardir, "csrc",
 def _dispatch(source: str, launcher: str) -> set:
     """The switch combinations (threefry, error tables, match mode, store)
     that `launcher`'s dispatch in the .cu source instantiates, from its
-    ``*_WALK_CASE(t, r, kMode, s)`` lines."""
+    ``WARP_WALK_CASE(t, r, kMode, s)`` lines."""
     modes = {name: int(v) for name, v in re.findall(r"\b(k[A-Z]\w*) = (\d+)",
                                                      re.search(r"enum Match \{[^}]*\}",
                                                                source).group(0))}
@@ -208,18 +208,21 @@ def _dispatch(source: str, launcher: str) -> set:
     ("walk_ablation", walk_ablate.ABLATION_VARIANTS),
     ("walk_row_select", walk_ablate.ROW_SELECT_VARIANTS)])
 def test_every_variant_has_an_instance_of_its_launcher(experiment, variants):
-    """Each experiment's variants go through its own launcher
-    (`LAUNCHERS`: the step ablation the warp-per-lane kernel, the row select
-    the thread-per-lane one), whose dispatch in csrc/walk_ablate.cu
-    instantiates exactly the switches of those variants."""
+    """Both experiments' variants go through the one launcher (`LAUNCHER`),
+    the warp-per-lane kernel's: its dispatch in csrc/walk_ablate.cu has an
+    instance for each of this experiment's variants and instantiates exactly
+    the switches of the two experiments' variants; no other launcher and no
+    other kernel is left in the source."""
     with open(SOURCE) as f:
         source = f.read()
-    launcher = walk_ablate.LAUNCHERS[experiment]
-    want = {(t, r, walk_ablate.MATCH_MODES[m], st) for t, r, m, st in variants.values()}
-    assert _dispatch(source, launcher) == want
-    others = set().union(*(_dispatch(source, x) for x in walk_ablate.LAUNCHERS.values()
-                           if x != launcher))
-    assert want != others
+    switches = lambda vs: {(t, r, walk_ablate.MATCH_MODES[m], st) for t, r, m, st in vs.values()}
+    dispatch = _dispatch(source, walk_ablate.LAUNCHER)
+    assert switches(variants) <= dispatch
+    assert dispatch == (switches(walk_ablate.ABLATION_VARIANTS)
+                        | switches(walk_ablate.ROW_SELECT_VARIANTS))
+    assert re.findall(r'extern "C" int (\w+)\(', source) == [walk_ablate.LAUNCHER]
+    assert re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(",
+                      source) == ["fixed_walk_warp_kernel"]
     lanes = re.search(r"constexpr int kWarpLanes = (\d+);", source).group(1)
     assert int(lanes) == walk_ablate.WARP_LANES_PER_BLOCK
 
@@ -265,8 +268,8 @@ def test_ablation_warp_kernel_wraps_at_8192_steps_on_card(tmp_path):
     """The whole step at the experiment's 8,192 steps on 37 lanes, from a
     first match 4,096 below 2**18: 2 * pos passes 19 bits on every lane, so
     the low bits of the stored words wrap; the words and the per-lane results
-    equal the plain version's and the thread-per-lane kernel's (row select
-    `scan`, the same function)."""
+    equal the plain version's and the row select's `search` (the same
+    function through other match code)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the fixed-step walk kernels have no CPU mode")
     tt = port_tables(str(tmp_path), torch.device("cuda"))
@@ -276,9 +279,9 @@ def test_ablation_warp_kernel_wraps_at_8192_steps_on_card(tmp_path):
     got = walk_ablate.walk_ablation("full", *args, first_match=first)
     want = walk_ablate.fixed_walk_plain(walk_ablate.ABLATION_VARIANTS["full"], *args,
                                         first_match=first)
-    scan = walk_ablate.walk_row_select("scan", *args, first_match=first)
+    search = walk_ablate.walk_row_select("search", *args, first_match=first)
     torch.cuda.synchronize()
-    for g, w, k in zip(got, want, scan):
+    for g, w, k in zip(got, want, search):
         assert torch.equal(g, w) and torch.equal(g, k)
     low = _u32(got[0]) & ((1 << 19) - 1)
     assert (np.diff(low, axis=0) < -(1 << 18)).any(axis=0).all()
@@ -289,6 +292,18 @@ def test_row_select_kernels_match_plain_on_card(tmp_path):
     """Every row-select kernel variant equals its plain version on the card,
     and the exact variants equal each other."""
     out = _on_card(tmp_path, walk_ablate.walk_row_select, walk_ablate.ROW_SELECT_VARIANTS, 96)
+    for v in walk_ablate.ROW_SELECT_EXACT[1:]:
+        for a, b in zip(out[v], out["scan"]):
+            assert torch.equal(a, b), v
+
+
+@pytest.mark.gpu
+def test_row_select_warp_kernel_at_ragged_lanes_on_card(tmp_path):
+    """B = 37 lanes (the last block has warps past B) at 256 steps: every
+    row-select variant equals its plain version, and the exact variants
+    equal each other."""
+    out = _on_card(tmp_path, walk_ablate.walk_row_select, walk_ablate.ROW_SELECT_VARIANTS, 256,
+                   n_lanes=37)
     for v in walk_ablate.ROW_SELECT_EXACT[1:]:
         for a, b in zip(out[v], out["scan"]):
             assert torch.equal(a, b), v
