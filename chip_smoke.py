@@ -149,7 +149,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    lengths (`-med 8000 -sd 0.27`, the bench model's spread), counters zeroed
    just before and read just after: K1 and K2 must have launched, with 0
    checksum-fallback lanes, matching record counts, ref_base checked, and a
-   traced same-seed rerun byte-identical (idle share).
+   traced same-seed rerun byte-identical (idle share);
+19. multi-host runs: two ranks as two processes on the one card, through the
+   port's CLI (`--num_hosts 2 --host_id h --coordinator 127.0.0.1:<port>`,
+   gloo): genome at the main path's model (4,000 reads, batch 2,048) and the
+   chimeric metagenome of phase 17 (2,000 reads, batch 512). Every rank must
+   exit 0 within its time limit and launch K1 and K2 with 0
+   checksum-fallback lanes; the ranks' shards together must equal a
+   one-rank run of the same seed and batch (records by read index,
+   error-profile rows grouped by read); rank 0 emulated in this process
+   must write the distributed rank 0's shards, and every walk shape it
+   launches (K1 and K2 on a rank's 1,024 or 256 slots, packed for the
+   chimeric metagenome, and K2 in host 0's unaligned pass) is held against
+   its plain version, carrying the ranks' launches at that shape; at a small
+   size the emulated ranks' shards on the card must equal the CPU's. The
+   two-rank and one-rank reads/s are printed (two ranks share one card: no
+   scaling number).
+20. (run after phase 14, on its fixture) the transcriptome's exact 2D-KDE
+   conditional: its small cDNA run's CUDA files equal the CPU's (phase 12);
+   then the cDNA aligned pass at phase 13's configuration, 10,000 reads,
+   counters zeroed just before and read just after: K1 launched at the
+   transcriptome path's shape only (its row carries these launches as
+   `launches_exact_conditional`), 0 checksum-fallback lanes, record count,
+   ref_base; reads/s, peak device
+   memory, a traced byte-identical rerun (device ops per batch), and the
+   default draw's aligned pass timed beside it.
 
 The line before the last is the kernels' JSON record: every kernel at every
 shape a path gives it, with that path's launches (`path`: main, circular,
@@ -159,11 +183,13 @@ instances of K8); the metagenome path gives K1 and K2 the chimeric path's
 shapes and K4 (under NANOSIM_TPU_RECON=0) the chimeric circular path's, so
 those rows also carry `launches_metagenome` and `launches_metagenome_recon0`,
 and the -med/-sd path gives K1 and K2 the main path's, so those carry
-`launches_lognormal`;
+`launches_lognormal`; the multi-host rows (`path` multi-host genome and
+multi-host metagenome --chimeric) carry the ranks' launches at their own
+shape (`launches`, their sum, and `launches_by_rank`);
 the line before it holds the other shapes and the other experiment variants.
 The last line is {"ok": true, "device": {...}}.  `--quick` runs only the
-builds and phases 12-16 (a short check while working on the newest
-slices); `--kernels` only the builds and the kernels at every path's shapes
+builds and phases 12-16, 19 and 20 (a short check while working on the
+newest slices); `--kernels` only the builds and the kernels at every path's shapes
 (phases 3 and 13, without the walk experiments), driving no path;
 `--experiments` only the builds and the measuring kernels (the walk
 experiments of phase 3, and phase 15).
@@ -419,11 +445,25 @@ def phase_kernels(prefix: str, ref: str):
     return results
 
 
+def _once_ms(fn):
+    """(fn(), the ms of that one call on the card by CUDA events): a plain
+    walk's call takes seconds, so the call that gives the values the kernel
+    is held against is also the one timed."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def _walk_case(kind: str, args, role: str, path: str):
     """One walk kernel (`kind` aligned or unaligned) on `args` against its
     plain version, timed beside its bound: the row of the kernels' record."""
-    import torch
-
     from nanosim_tpu_torch.ops import walk_cuda
     from nanosim_tpu_torch.ops.cuda_build import time_ms
 
@@ -444,8 +484,7 @@ def _walk_case(kind: str, args, role: str, path: str):
     else:
         in_bytes = B * (8 + 4) + 4 * 3 * n_t
     got = kern(*args)
-    want = plain(*args)
-    torch.cuda.synchronize()
+    want, plain_ms = _once_ms(lambda: plain(*args))
     max_err = 0
     for g, w in zip(got, want):
         if g.shape != w.shape:
@@ -465,7 +504,6 @@ def _walk_case(kind: str, args, role: str, path: str):
     out_bytes = 4 * steps + 4 * 4 * B
     bound, bound_by = _bound_ms(in_bytes + out_bytes, ints, f32)
     ms = time_ms(lambda: kern(*args), TIMED_LAUNCHES)
-    plain_ms = time_ms(lambda: plain(*args), 1)
     # the kernel's own device time (the event time above also holds the
     # wrapper's host work and the zero-filled output, which a short launch
     # does not hide), and the wrapper's host time per call
@@ -1312,8 +1350,9 @@ def zero_counters():
 
     output.RUN_STATS.reset()
     walk_cuda.aligned_steps.launches = 0
-    walk_cuda.aligned_steps.launches_by_budget = {}
+    walk_cuda.aligned_steps.launches_by_shape = {}
     walk_cuda.unaligned_steps.launches = 0
+    walk_cuda.unaligned_steps.launches_by_shape = {}
     gather_cuda.gather_codes.launches = 0
     gather_cuda.gather_u8.launches = 0
     gather_cuda.gather_u8.launches_by_width = {}
@@ -1326,13 +1365,24 @@ def zero_counters():
         fn.launches_by_variant = {}
 
 
+def _by_budget(by_shape: dict) -> dict:
+    out = {}
+    for (_, e), n in by_shape.items():
+        out[e] = out.get(e, 0) + n
+    return out
+
+
 def read_counters() -> dict:
     from nanosim_tpu_torch.ops import assemble_cuda, gather_cuda, walk_cuda
     from nanosim_tpu_torch.sim import output
 
     return {"aligned": walk_cuda.aligned_steps.launches,
-            "aligned_by_budget": dict(walk_cuda.aligned_steps.launches_by_budget),
+            "aligned_by_budget": _by_budget(walk_cuda.aligned_steps.launches_by_shape),
             "unaligned": walk_cuda.unaligned_steps.launches,
+            # per walk shape, keyed "BxE" (the ranks send them as JSON)
+            **{f"{kind}_by_shape": {f"{b}x{e}": n for (b, e), n in fn.launches_by_shape.items()}
+               for kind, fn in (("aligned", walk_cuda.aligned_steps),
+                                ("unaligned", walk_cuda.unaligned_steps))},
             "gather": gather_cuda.gather_codes.launches,
             "gather_u8": gather_cuda.gather_u8.launches,
             "gather_u8_by_width": dict(gather_cuda.gather_u8.launches_by_width),
@@ -1772,6 +1822,107 @@ def _run_trx(fx: dict, kind: str, out: str, n: int, batch: int, device: str, see
                                   batch=batch, device=device, **kw)
 
 
+def _run_trx_exact(fx: dict, out: str, n: int, batch: int, device: str, seed: int = SEED,
+                   exact_conditional: bool = True):
+    """The cDNA aligned pass (polyA tails, FASTQ) with
+    `TranscriptomeSimulator(exact_conditional=True)`: the aligned lengths
+    from the 2D KDE's exact conditional ([B, N] float32 weights, XLA CPU's
+    sum orders); with exact_conditional=False the default nearest-of-a-pool
+    draw.  Returns the reads written."""
+    from nanosim_tpu_torch.io.genome import PackedGenome
+    from nanosim_tpu_torch.profiles import profile
+    from nanosim_tpu_torch.sim import output
+    from nanosim_tpu_torch.sim.run_transcriptome import (POLYA_SCALE, TranscriptomeSimulator,
+                                                         TrxBatchWriter)
+
+    trx = PackedGenome.from_fasta(fx["trx"])
+    prof = profile.load_profile(fx["prefix"], mode="transcriptome", fastq=True, model_ir=False,
+                                polya_path=fx["polya"])
+    expr = profile.load_expression(fx["exp"], dict(zip(trx.names, (int(x) for x in trx.lengths))))
+    sim = TranscriptomeSimulator(trx, prof, expr, fastq=True, polya_scale=POLYA_SCALE["guppy"],
+                                 batch=batch, exact_conditional=exact_conditional, device=device)
+    fw = output.FastxWriter(out + "_aligned_reads.fastq", True)
+    el = output.ErrorLogWriter(out + "_aligned_error_profile", header=True)
+    got = sim.run(n, TrxBatchWriter(fw, el), seed=seed)
+    fw.close()
+    el.close()
+    return got
+
+
+def phase_exact_conditional_path(d: str, fx: dict, card: str, n: int = N_TRX_READS):
+    """Phase 20: the cDNA aligned pass with the exact 2D-KDE conditional at
+    the transcriptome configuration of phase 13 (batch 512, the 2D KDE's
+    2,000 points), n reads, counters zeroed just before and read just after:
+    K1 must have launched with 0 checksum-fallback lanes, the record count
+    must match and ref_base must match the transcript on 200 records.
+    Prints reads/s and the peak device memory; then a traced same-seed
+    rerun must give the same bytes (device ops per batch), and the default
+    draw's aligned pass is timed beside it.  Returns (reads/s, launches)."""
+    import torch
+
+    from nanosim_tpu_torch.io.genome import PackedGenome
+
+    out = os.path.join(d, "exact conditional", "sim")
+    os.makedirs(os.path.dirname(out))
+    out2 = os.path.join(d, "exact conditional", "run2")
+    zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    got = _run_trx_exact(fx, out, n, TRX_BATCH, "cuda")
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    print(f"exact conditional path (cDNA aligned pass, batch {TRX_BATCH}): {got} reads in "
+          f"{dt:.2f}s -> {n / dt:.1f} reads/s on {card}; peak device memory {peak:.1f} MiB; "
+          f"launches {launches}", flush=True)
+    if launches["aligned"] == 0 or launches["checksum_fallback_lanes"] != 0:
+        fail(f"exact conditional path: launches {launches}")
+    names = read_names(out + "_aligned_reads.fastq")
+    if len(names) != n or got != n:
+        fail(f"exact conditional path: {len(names)} records, {got} written, {n} requested")
+    check_error_profile(out + "_aligned_error_profile", PackedGenome.from_fasta(fx["trx"]))
+    print("exact conditional path: ref_base checked on 200 records", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _run_trx_exact(fx, out2, n, TRX_BATCH, "cuda")
+        torch.cuda.synchronize()
+    dt2 = time.time() - t0
+    if [sha(out + s) for s in FILES[:2]] != [sha(out2 + s) for s in FILES[:2]]:
+        fail("exact conditional path: second run with the same seed differs")
+    print(f"exact conditional path: second run byte-identical ({n / dt2:.1f} reads/s, traced)",
+          flush=True)
+    _, n_ops = report_trace(prof, dt2)
+    print(f"exact conditional path: {n_ops / launches['aligned']:.0f} device ops per batch "
+          f"({launches['aligned']} batches of {TRX_BATCH})", flush=True)
+    t0 = time.time()
+    _run_trx_exact(fx, os.path.join(d, "exact conditional", "default"), n, TRX_BATCH, "cuda",
+                   exact_conditional=False)
+    torch.cuda.synchronize()
+    dt3 = time.time() - t0
+    print(f"cDNA aligned pass with the default nearest-of-a-pool draw: {n} reads in {dt3:.2f}s "
+          f"-> {n / dt3:.1f} reads/s on {card}", flush=True)
+    return n / dt, launches
+
+
+def exact_cuda_vs_cpu(fx: dict):
+    """The cDNA aligned pass with the exact conditional at a small size:
+    the CUDA files must equal the CPU files."""
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        out = os.path.join(os.path.dirname(fx["prefix"]), f"exact_cDNA_{dev}")
+        _run_trx_exact(fx, out, 200, 64, dev)
+        outs[dev] = [sha(out + s) for s in FILES[:2]]
+    if outs["cpu"] != outs["cuda"]:
+        fail(f"small transcriptome cDNA exact_conditional=True run: CUDA output differs from the "
+             f"CPU output: {outs}")
+    print("small transcriptome cDNA exact_conditional=True run: CUDA files byte-identical to "
+          "the CPU path", flush=True)
+
+
 def phase_trx_cuda_vs_cpu(d: str):
     """The transcriptome and --perfect runs at a small size, CUDA against the
     CPU path: byte-identical files (the CPU path is held byte-identical to
@@ -1816,6 +1967,7 @@ def phase_trx_cuda_vs_cpu(d: str):
             extra = f" ({n_minus} reads retain an intron of a '-' strand structure)"
         print(f"small transcriptome {label} run{' NANOSIM_TPU_RECON=0' if recon else ''}: CUDA "
               f"files byte-identical to the CPU path{extra}", flush=True)
+    exact_cuda_vs_cpu(fx)
     from nanosim_tpu_torch.sim.run import simulate_genome
 
     for label, ref, dna, recon, k in (("linear", gref, "linear", None, None),
@@ -2101,9 +2253,10 @@ def phase_trx_recon0(d: str, fx: dict, kind: str, card: str, n: int = N_TRX_RECO
 
 
 def run_trx_slice(d: str, card: str):
-    """Phases 12-14: the transcriptome and --perfect runs CUDA against CPU,
-    the transcriptome kernels' shapes, and the transcriptome paths at full
-    width.  Returns (kernel rows, {path: launches}, rates)."""
+    """Phases 12-14 and 20: the transcriptome and --perfect runs CUDA against
+    CPU, the transcriptome kernels' shapes, the transcriptome paths at full
+    width, and the exact conditional's path.  Returns (kernel rows, {path:
+    launches}, rates)."""
     phase_trx_cuda_vs_cpu(d)
     t0 = time.time()
     fx = make_trx_fixtures(os.path.join(d, "trx"), N_TRX, N_IR_TRX, IR_GENOME,
@@ -2126,6 +2279,8 @@ def run_trx_slice(d: str, card: str):
         rates[label] = (rate, rate2)
     for kind in ("cDNA", "intron retention"):
         paths[f"{kind} RECON=0"] = phase_trx_recon0(d, fx, kind, card)
+    rate, paths["exact conditional"] = phase_exact_conditional_path(d, fx, card)
+    rates["exact conditional (aligned pass)"] = (rate, None)
     return rows, paths, rates
 
 
@@ -2264,7 +2419,8 @@ def phase_metagenome_path(d: str, card: str):
     share of reference bases within 5 points of the abundance file; a traced
     same-seed rerun byte-identical (idle share, device ops per batch, host
     seconds of the species assignment); then NANOSIM_TPU_RECON=0 at 2,000
-    reads must equal Route A's files, with K4 launched."""
+    reads must equal Route A's files, with K4 launched.  Returns (launches,
+    the RECON=0 run's launches, reads/s, traced reads/s, the fixture)."""
     import dataclasses
 
     import torch
@@ -2273,8 +2429,7 @@ def phase_metagenome_path(d: str, card: str):
     from nanosim_tpu_torch.profiles import profile
 
     t0 = time.time()
-    fx = make_meta_fixture(os.path.join(d, "meta"), [[META_CHROM] * 2] * 3, 8000, 2200, 2000,
-                           CHI_SEGMENT_MEAN, (N_META,), tuple((a,) for a in META_ABUN))
+    fx = make_meta_path_fixture(d)
     print(f"metagenome fixture ({len(META_SPECIES)} species x 2 x {META_CHROM} bp) in "
           f"{time.time() - t0:.1f}s", flush=True)
     prof = profile.load_profile(fx["prefix"], mode="metagenome", chimeric=True, fastq=True)
@@ -2369,7 +2524,307 @@ def phase_metagenome_path(d: str, card: str):
     if outs["0"] != outs[None]:
         fail(f"metagenome NANOSIM_TPU_RECON=0 files differ from Route A's: {outs}")
     print("metagenome NANOSIM_TPU_RECON=0: files byte-identical to Route A", flush=True)
-    return launches, recon0, N_META / dt, N_META / dt2
+    return launches, recon0, N_META / dt, N_META / dt2, fx
+
+
+def make_meta_path_fixture(d: str) -> dict:
+    """Phase 17's fixture: the JAX package's metagenome configuration with
+    one sample of N_META reads."""
+    return make_meta_fixture(os.path.join(d, "meta"), [[META_CHROM] * 2] * 3, 8000, 2200, 2000,
+                             CHI_SEGMENT_MEAN, (N_META,), tuple((a,) for a in META_ABUN))
+
+
+# --- multi-host runs (--num_hosts) ----------------------------------------------
+
+N_MH = 4000  # genome at the main path's model
+N_MH_META = 2000  # the chimeric metagenome of phase 17
+MH_RANKS = 2
+MH_RANK_TIMEOUT_S = 300  # a rank that has not exited by then fails the phase
+
+# one rank: `python -m nanosim_tpu_torch simulate ...` (the port's CLI, called
+# in this process), then the seconds of the call and the kernels' launch
+# counters of this process (zero at its start)
+RANK_SCRIPT = """
+import json, sys, time
+import torch
+from chip_smoke import read_counters
+from nanosim_tpu_torch.__main__ import main
+sys.argv = ["nanosim_tpu_torch"] + sys.argv[1:]
+t0 = time.time()
+main()
+torch.cuda.synchronize()
+print("RANK " + json.dumps({"seconds": time.time() - t0, "launches": read_counters()}))
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _cli_ranks(d: str, label: str, argv, n_ranks: int) -> list:
+    """Run `simulate <argv>` through the port's CLI as n_ranks processes on
+    the card, one rank each, joined at a free local port (n_ranks=1: one
+    single-host process).  Fails unless every rank exits 0 within
+    MH_RANK_TIMEOUT_S (the others are then killed).  Returns each rank's
+    {seconds, launches}."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs, logs = [], []
+    for h in range(n_ranks):
+        extra = (["--num_hosts", str(n_ranks), "--host_id", str(h), "--coordinator",
+                  coordinator] if n_ranks > 1 else [])
+        log_path = os.path.join(d, f"{label.replace(' ', '_')}_rank{h}of{n_ranks}.log")
+        logs.append(log_path)
+        with open(log_path, "w") as f:
+            procs.append(subprocess.Popen([sys.executable, "-c", RANK_SCRIPT, "simulate", *argv,
+                                           *extra], cwd=REPO, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.time() + MH_RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        late = [h for h, p in enumerate(procs) if p.poll() is None]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for h, (p, path) in enumerate(zip(procs, logs)):
+        with open(path) as f:
+            text = f.read()
+        if h in late:
+            fail(f"{label}: rank {h} of {n_ranks} had not exited after {MH_RANK_TIMEOUT_S}s:\n"
+                 f"{text[-3000:]}")
+        if p.returncode != 0:
+            fail(f"{label}: rank {h} of {n_ranks} exited {p.returncode}:\n{text[-3000:]}")
+        rank = [ln for ln in text.splitlines() if ln.startswith("RANK ")]
+        if not rank:
+            fail(f"{label}: rank {h} printed no result:\n{text[-3000:]}")
+        results.append(json.loads(rank[-1][5:]))
+    return results
+
+
+def _read_index(name: bytes) -> int:
+    toks = name.replace(b";", b"_").split(b"_")
+    for i, t in enumerate(toks):
+        if t in (b"aligned", b"unaligned", b"perfect"):
+            return int(toks[i + 1])
+    fail(f"no read index in {name!r}")
+
+
+def _fastq_by_index(paths) -> dict:
+    """{read index: (name, bases, qualities)} over FASTQ files."""
+    out = {}
+    for path in paths:
+        with open(path, "rb") as f:
+            lines = f.read().split(b"\n")
+        for i in range(0, len(lines) - 1, 4):
+            idx = _read_index(lines[i][1:])
+            if idx in out:
+                fail(f"read index {idx} twice in {paths}")
+            out[idx] = (lines[i][1:], lines[i + 1], lines[i + 3])
+    return out
+
+
+def _error_rows_by_read(paths) -> dict:
+    """{read name: [rows]} over error profiles (their headers skipped)."""
+    out = {}
+    for path in paths:
+        with open(path, "rb") as f:
+            for line in f:
+                if line.startswith(b"Seq_name\t"):
+                    continue
+                out.setdefault(line.split(b"\t", 1)[0], []).append(line)
+    return out
+
+
+def _merged_equal_single(label: str, single: str, shards: list, suffixes) -> int:
+    """The ranks' shards of each of `suffixes` together equal the single-host
+    file: FASTQ records by read index (gapless 0..n-1), error-profile rows
+    grouped by read.  Returns the aligned reads' count."""
+    n = 0
+    for suf in suffixes:
+        parts = [f"{sh}{suf.format(t=f'_h{h}')}" for h, sh in enumerate(shards)]
+        whole = single + suf.format(t="")
+        if suf.endswith(".fastq"):
+            a, b = _fastq_by_index([whole]), _fastq_by_index(parts)
+            if a != b or sorted(b) != list(range(len(b))):
+                fail(f"{label}: the ranks' {suf} shards differ from the single-host run "
+                     f"({len(a)} against {len(b)} records)")
+            if "_aligned_reads" in suf:
+                n = len(b)
+        else:
+            if _error_rows_by_read([whole]) != _error_rows_by_read(parts):
+                fail(f"{label}: the ranks' {suf} shards differ from the single-host run")
+            with open(parts[0], "rb") as f:
+                if not f.readline().startswith(b"Seq_name\t"):
+                    fail(f"{label}: host 0's error profile has no header")
+    return n
+
+
+def _capture_walks(run) -> dict:
+    """Run `run()` with the walk wrappers watched: {(kind, B, E): the inputs
+    of the first launch at that shape}."""
+    from nanosim_tpu_torch.ops import error_walk, walk_cuda
+
+    seen = {}
+    proxy = types.SimpleNamespace(**{k: getattr(walk_cuda, k) for k in dir(walk_cuda)
+                                     if not k.startswith("__")})
+
+    def watch(kind, fn):
+        def launch(*args):
+            seen.setdefault((kind, args[1].shape[0], int(args[-1])), args)
+            return fn(*args)
+        return launch
+
+    proxy.aligned_steps = watch("aligned", walk_cuda.aligned_steps)
+    proxy.unaligned_steps = watch("unaligned", walk_cuda.unaligned_steps)
+    _capture_batch(run, [(error_walk, "walk_cuda", proxy)])
+    return seen
+
+
+def _shape_launches(k: dict, launches: dict) -> int:
+    """The launches of walk row `k` at its own (B, E) among one run's
+    counters."""
+    kind = "aligned" if k["name"] == "aligned_walk" else "unaligned"
+    return launches[f"{kind}_by_shape"].get(f"{k['B']}x{k['E']}", 0)
+
+
+def _multihost_rows(label: str, seen: dict, ranks: list) -> list:
+    """A kernel row for each walk shape of a multi-host run: the kernel
+    against its plain version on the inputs of its first launch at that
+    shape (captured from the emulated rank 0, which runs every rank's
+    shards), with the distributed ranks' launches at that shape.  Fails
+    unless the ranks launched exactly the captured shapes."""
+    launched = set()
+    for r in ranks:
+        for kind in ("aligned", "unaligned"):
+            launched |= {(kind, *map(int, key.split("x")))
+                         for key in r["launches"][f"{kind}_by_shape"]}
+    if launched != set(seen):
+        fail(f"{label}: the ranks launched the walks at {sorted(launched)}, the emulated rank 0 "
+             f"at {sorted(seen)}")
+    rows = []
+    for kind, B, E in sorted(seen):
+        row = _walk_case(kind, seen[kind, B, E], "record", label)
+        row["launches_by_rank"] = [_shape_launches(row, r["launches"]) for r in ranks]
+        row["launches"] = sum(row["launches_by_rank"])
+        rows.append(row)
+    return rows
+
+
+def _rank_kernels(label: str, ranks: list, kernels) -> None:
+    for h, r in enumerate(ranks):
+        got = r["launches"]
+        missing = [k for k in kernels if got[k] == 0]
+        if missing or got["checksum_fallback_lanes"]:
+            fail(f"{label}: rank {h}: {missing} not launched or checksum-fallback lanes: {got}")
+
+
+def phase_multihost(d: str, prefix: str, ref: str, meta_fx: dict, card: str) -> list:
+    """Phase 19: two ranks as two processes on the one card, through the
+    port's CLI (`--num_hosts 2 --host_id h --coordinator 127.0.0.1:<port>`,
+    a gloo process group): genome at the main path's model (N_MH reads,
+    batch 2,048, FASTQ) and the chimeric metagenome of phase 17 (N_MH_META
+    reads, batch 512).  Each rank must exit 0 within its time limit and
+    launch K1 and K2 with 0 checksum-fallback lanes; the ranks' shards
+    together must equal a single-host run of the same seed and batch (also
+    through the CLI, one process).  Then rank 0 emulated in this process
+    (the CLI without a coordinator) must write the distributed rank 0's
+    shards, and every walk shape it launches is held against its plain
+    version, with the ranks' launches at that shape; at a small size, every
+    shard of the emulated ranks on the card must equal the CPU's.  Prints
+    the two-rank and the one-rank reads/s (each rank's seconds in the CLI
+    call; two ranks share one card).  Returns the kernel rows."""
+    from nanosim_tpu_torch import cli
+    from nanosim_tpu_torch.sim.run import simulate_genome
+
+    mh = os.path.join(d, "multihost")
+    os.makedirs(mh)
+    abun = os.path.join(mh, "abun.tsv")
+    with open(abun, "w") as f:
+        f.write(f"Species\t{N_MH_META}\n" + "".join(
+            f"{sp.replace('_', ' ')}\t{a}\n" for sp, a in zip(META_SPECIES, META_ABUN)))
+    jobs = (
+        ("multi-host genome", N_MH, BATCH,
+         ["genome", "-rg", ref, "-c", prefix, "-n", str(N_MH), "--fastq", "--seed", str(SEED),
+          "--batch", str(BATCH)],
+         ("_aligned_reads{t}.fastq", "_aligned_error_profile{t}", "_unaligned_reads{t}.fastq"),
+         ""),
+        ("multi-host metagenome --chimeric", N_MH_META, CHI_BATCH,
+         ["metagenome", "-gl", meta_fx["glist"], "-a", abun, "-dl", meta_fx["dl"], "-c",
+          meta_fx["prefix"], "--chimeric", "--fastq", "--seed", str(SEED), "--batch",
+          str(CHI_BATCH)],
+         ("_aligned_reads{t}.fastq", "_aligned_error_profile{t}"), "_sample0"))
+    rows = []
+    for label, n, batch, argv, suffixes, sample in jobs:
+        tag = label.split()[1]
+        single = _cli_ranks(mh, label, argv + ["-o", os.path.join(mh, f"{tag}_1")], 1)
+        ranks = _cli_ranks(mh, label, argv + ["-o", os.path.join(mh, f"{tag}_2")], MH_RANKS)
+        _rank_kernels(label + " (one rank)", single, ("aligned", "unaligned"))
+        _rank_kernels(label, ranks, ("aligned", "unaligned"))
+        got = _merged_equal_single(label, os.path.join(mh, f"{tag}_1{sample}"),
+                                   [os.path.join(mh, f"{tag}_2{sample}")] * MH_RANKS, suffixes)
+        if sample:  # host 0 alone runs the metagenome's unaligned pass
+            u = f"{sample}_unaligned_reads.fastq"
+            if sha(os.path.join(mh, f"{tag}_1{u}")) != sha(os.path.join(mh, f"{tag}_2{u}")):
+                fail(f"{label}: host 0's unaligned reads differ from the single-host run's")
+        one = n / single[0]["seconds"]
+        two = n / max(r["seconds"] for r in ranks)
+        secs = ", ".join(f"{r['seconds']:.2f}" for r in ranks)
+        print(f"{label}: {got} aligned reads in the merged shards equal the single-host run "
+              f"(batch {batch}); launches by rank {[r['launches'] for r in ranks]}, one rank "
+              f"{single[0]['launches']}", flush=True)
+        print(f"{label} ({n} reads, batch {batch}): {MH_RANKS} ranks {two:.1f} reads/s (the "
+              f"ranks' seconds in the CLI call: {secs}), one rank {one:.1f} reads/s "
+              f"({single[0]['seconds']:.2f}s) on {card}; two ranks share one card: this is not "
+              f"a scaling number", flush=True)
+        emulated = os.path.join(mh, f"{tag}_emulated")
+        seen = _capture_walks(lambda: cli.main(argv + ["-o", emulated, "--num_hosts",
+                                                       str(MH_RANKS), "--host_id", "0"]))
+        for suf in suffixes:
+            name = sample + suf.format(t="_h0")
+            if sha(os.path.join(mh, f"{tag}_2{name}")) != sha(emulated + name):
+                fail(f"{label}: the emulated rank 0's {name} differs from the distributed one's")
+        print(f"{label}: rank 0 emulated in one process wrote the distributed rank 0's shards; "
+              f"walk shapes {sorted(seen)}", flush=True)
+        rows += _multihost_rows(label, seen, ranks)
+
+    # the emulated ranks on the card against the CPU at a small size
+    sprefix, sref = make_fixture(os.path.join(mh, "small"), 0.4, 700, 250, 300)
+    sfx = make_meta_fixture(os.path.join(mh, "meta_small"), [[150000], [100000, 40000], [120000]],
+                            700, 250, 300, 1.9, (150, 100), ((60, 20), (30, 50), (10, 30)))
+    for label, run, files in (
+            ("genome", lambda o, dev, h: simulate_genome(
+                sref, sprefix, o, 200, fastq=True, seed=SEED, batch=64, n_hosts=MH_RANKS,
+                host_id=h, device=dev),
+             [f + "_h{h}" + e for f, e in (("_aligned_reads", ".fastq"),
+                                            ("_aligned_error_profile", ""),
+                                            ("_unaligned_reads", ".fastq"))]),
+            ("metagenome --chimeric", lambda o, dev, h: _run_meta(
+                sfx, o, 64, dev, chimeric=True, n_hosts=MH_RANKS, host_id=h),
+             [f"_{s}{f}" + "_h{h}" + e for s in ("sample0", "sample1")
+              for f, e in (("_aligned_reads", ".fastq"), ("_aligned_error_profile", ""))]
+             + [f"_{s}_unaligned_reads.fastq" for s in ("sample0", "sample1")])):
+        shas = {}
+        for dev in ("cpu", "cuda"):
+            o = os.path.join(mh, "small_runs", label.split()[0], dev, "sim")
+            os.makedirs(os.path.dirname(o), exist_ok=True)
+            for h in range(MH_RANKS):
+                run(o, dev, h)
+            shas[dev] = [sha(o + f.format(h=h)) for h in range(MH_RANKS) for f in files
+                         if "{h}" in f or h == 0]
+        if shas["cpu"] != shas["cuda"]:
+            fail(f"small multi-host {label} run: the card's shards differ from the CPU's")
+        print(f"small multi-host {label} run ({MH_RANKS} emulated ranks): every shard on the "
+              f"card byte-identical to the CPU's", flush=True)
+    return rows
 
 
 def report_trace(prof, wall_s: float):
@@ -2442,14 +2897,28 @@ def attach_launches(cases, by_path: dict, recon0_of: dict, trx_paths: dict, meta
                 label: _launches_by_name(k, got) for label, got in trx_paths.items()}
 
 
+def attach_exact_conditional(rows, launches: dict):
+    """The exact conditional's aligned pass (phase 20) launches K1 at the
+    transcriptome path's shape and at no other: its launches go on that
+    row."""
+    (k,) = [k for k in rows if k["role"] == "record" and k["path"] == "transcriptome"
+            and k["name"] == "aligned_walk"]
+    k["launches_exact_conditional"] = _shape_launches(k, launches)
+    if k["launches_exact_conditional"] != launches["aligned"] or launches["unaligned"]:
+        fail(f"the exact conditional's aligned pass launched the walks at "
+             f"{launches['aligned_by_shape']} and {launches['unaligned_by_shape']}, not only "
+             f"K1 at B={k['B']} E={k['E']}")
+
+
 def main():
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--quick", action="store_true",
                     help="a check of the newest slices only (builds, the windowed-gather "
-                         "experiment, the transcriptome and --perfect phases, the metagenome "
-                         "CUDA-against-CPU runs); without it every phase runs")
+                         "experiment, the transcriptome and --perfect phases with the exact "
+                         "conditional, the metagenome CUDA-against-CPU runs, the multi-host "
+                         "runs); without it every phase runs")
     ap.add_argument("--kernels", action="store_true",
                     help="the kernels only (builds, then K1-K5 at every path's shapes against "
                          "their plain versions, timed), driving no path")
@@ -2472,7 +2941,11 @@ def main():
             phase_gather_window(card)
             trx_rows, trx_paths, _ = run_trx_slice(d, card)
             phase_meta_cuda_vs_cpu(d)
+            prefix, ref = make_fixture(os.path.join(d, "bench"), GENOME_MB, 8000, 2200, 2000)
+            mh_rows = phase_multihost(d, prefix, ref, make_meta_path_fixture(d), card)
             attach_launches(trx_rows, trx_paths, {}, trx_paths)
+            attach_exact_conditional(trx_rows, trx_paths["exact conditional"])
+            trx_rows += mh_rows
             print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
                                           for k in trx_rows]}))
             print(json.dumps({"ok": True, "quick": True, "seconds": time.time() - t_start,
@@ -2541,10 +3014,13 @@ def main():
         cases += trx_rows
         experiments += phase_gather_window(card)
         phase_meta_cuda_vs_cpu(d)
-        meta_l, meta_recon0_l, mrate1, mrate2 = phase_metagenome_path(d, card)
+        meta_l, meta_recon0_l, mrate1, mrate2, meta_fx = phase_metagenome_path(d, card)
         ln_l, lrate1, lrate2 = phase_path(
             "-med/-sd", d, prefix, ref, N_READS, card, "linear", ("aligned", "unaligned"),
             median_len=LN_MEDIAN, sd_len=LN_SD)
+        t_mh = time.time()
+        mh_rows = phase_multihost(d, prefix, ref, meta_fx, card)
+        print(f"multi-host phase in {time.time() - t_mh:.1f}s", flush=True)
     if chi_l["packed_spills"] != 0:
         fail(f"{chi_l['packed_spills']} chimeric batches spilled their packed walk lanes")
     by_path = {"main": main_l, "circular": circ_l, "-hp": hp_l, "chimeric": chi_l,
@@ -2555,7 +3031,8 @@ def main():
                                                                    meta_recon0_l)},
                "main": {"launches_lognormal": ("-med/-sd", ln_l)}}
     attach_launches(cases, by_path, recon0_of, trx_paths, meta_of)
-    cases += experiments
+    attach_exact_conditional(cases, trx_paths["exact conditional"])
+    cases += mh_rows + experiments
     print(f"main path reads/s: {rate1:.1f}, {rate2:.1f} traced; circular path reads/s: "
           f"{crate1:.1f}, {crate2:.1f} traced; -hp path reads/s: {hrate1:.1f}, {hrate2:.1f} "
           f"traced; -hp on the host-reconstruction route: {harate:.1f} reads/s, "

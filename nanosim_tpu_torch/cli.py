@@ -10,8 +10,9 @@ homopolymer mode (`-hp -k`), chimeric reads (`--chimeric`), perfect reads
 with `--uracil`, polyA tails, intron retention, `-hp -k`, `--perfect`, `-x`,
 `--resume`); the metagenome sub-command (multi-species abundance with the
 species-quota feedback, `--abun_var`, `--chimeric`, `--perfect`, `-hp -k`,
-`-med/-sd`, `--resume`).  The option not ported yet (multi-host,
-`--num_hosts`) says so and exits non-zero.
+`-med/-sd`, `--resume`); and multi-host runs of all three (`--num_hosts`,
+`--host_id`, `--coordinator`: one process per rank, or one process
+emulating the ranks when no coordinator is given).
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--host_id", type=int, default=0,
                        help="this process's rank in a multi-host run")
     g.add_argument("--coordinator", default=None,
-                       help="coordinator address of a multi-host run (not ported yet)")
+                       help="host:port of rank 0's process group")
     g.add_argument("--resume", action="store_true", default=False,
                    help="continue an interrupted run from its checkpoint")
     g.add_argument("--batch", type=int, default=256, help="device batch size")
@@ -94,7 +95,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--host_id", type=int, default=0,
                    help="this process's rank in a multi-host run")
     t.add_argument("--coordinator", default=None,
-                   help="coordinator address of a multi-host run (not ported yet)")
+                   help="host:port of rank 0's process group")
     t.add_argument("--uracil", action="store_true", default=False)
     t.add_argument("--resume", action="store_true", default=False,
                    help="continue an interrupted run from its checkpoint")
@@ -124,7 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--host_id", type=int, default=0,
                    help="this process's rank in a multi-host run")
     m.add_argument("--coordinator", default=None,
-                   help="coordinator address of a multi-host run (not ported yet)")
+                   help="host:port of rank 0's process group")
     m.add_argument("--resume", action="store_true", default=False,
                    help="continue an interrupted run from its checkpoint")
     m.add_argument("--batch", type=int, default=256)
@@ -145,11 +146,6 @@ def _validate_common(args, parser):
     if args.max_len < args.min_len:
         sys.stderr.write("\nMaximum read length must be longer than Minimum read length!\n")
         sys.exit(1)
-
-
-def _not_ported(what: str):
-    sys.stderr.write(f"\n{what} is not ported to the PyTorch package yet\n")
-    sys.exit(2)
 
 
 def main(argv=None):
@@ -183,8 +179,6 @@ def main(argv=None):
     if args.perfect and args.chimeric:
         print("\nPerfect reads cannot be chimeric\n")
         sys.exit(1)
-    if args.num_hosts > 1:
-        _not_ported("--num_hosts")
 
     from .sim.run import calculate_read_number_from_coverage, simulate_genome
 
@@ -209,6 +203,9 @@ def main(argv=None):
         sd_len=sd,
         seed=seed,
         batch=args.batch,
+        n_hosts=args.num_hosts,
+        host_id=args.host_id,
+        coordinator=args.coordinator,
         resume=args.resume,
     )
 
@@ -221,8 +218,6 @@ def _transcriptome(args, seed: int):
     if args.polya and args.basecaller is None:
         print("\nPlease input basecaller to simulate polyA tails from.\n")
         sys.exit(1)
-    if args.num_hosts > 1:
-        _not_ported("--num_hosts")
 
     from .sim.run import calculate_read_number_from_coverage
     from .sim.run_transcriptome import simulate_transcriptome
@@ -251,6 +246,9 @@ def _transcriptome(args, seed: int):
         max_len=args.max_len,
         seed=seed,
         batch=args.batch,
+        n_hosts=args.num_hosts,
+        host_id=args.host_id,
+        coordinator=args.coordinator,
         resume=args.resume,
     )
 
@@ -265,8 +263,6 @@ def _metagenome(args, seed: int):
     if args.perfect and args.chimeric:
         print("\nPerfect reads cannot be chimeric\n")
         sys.exit(1)
-    if args.num_hosts > 1:
-        _not_ported("--num_hosts")
 
     from .sim.run_metagenome import simulate_metagenome
 
@@ -289,6 +285,9 @@ def _metagenome(args, seed: int):
         sd_len=args.sd_len,
         seed=seed,
         batch=args.batch,
+        n_hosts=args.num_hosts,
+        host_id=args.host_id,
+        coordinator=args.coordinator,
         resume=args.resume,
     )
 

@@ -226,6 +226,31 @@ class KdeDevice:
         idx = torch.argmin((s0 - cond_value[:, None]).abs(), dim=1)
         return s1.gather(1, idx[:, None])[:, 0]
 
+    def conditional_component(self, cond_value, u_comp) -> torch.Tensor:
+        """The component index of the exact conditional draw: weights
+        exp(-(c - data[i, 0])**2 / (2 bw**2)), normalised by their logsumexp,
+        then the first component whose cumulative weight reaches u_comp
+        (clamped to the last).  Each step is XLA CPU's float32 operation in
+        its order, so a one-ulp difference cannot move a lane to another
+        component.  cond_value, u_comp: [B]; [B] int64."""
+        n = self.data.shape[0]
+        d = cond_value[:, None] - self.data[None, :, 0]
+        bw2 = self.bandwidth * self.bandwidth * 2.0
+        logw = -(d * d) / bw2
+        logw = logw - xla_math.logsumexp_f32(logw)
+        cum = xla_math.cumsum_f32(xla_math.exp_f32(logw))
+        return (cum < u_comp[:, None]).sum(dim=1).clamp_max(n - 1)
+
+    def sample_conditional(self, cond_value, u_comp, z) -> torch.Tensor:
+        """Sample dim-1 conditioned on dim-0 == cond_value (2D KDE): the
+        exact conditional of the isotropic Gaussian KDE, which replaces the
+        reference's nearest-of-a-pool approximation (select_nearest_kde2d,
+        simulator.py:108-111); data[i, 1] + bw * z (one fused multiply-add)
+        at the component of `conditional_component`.  The [B, N] weights are
+        float32."""
+        i = self.conditional_component(cond_value, u_comp)
+        return xla_math.fma32(self.bandwidth.expand_as(z), z, self.data[i, 1])
+
 
 def build_qual_breakpoints(params: dict, classes) -> tuple:
     """Disk-cached wrapper around :func:`_build_qual_breakpoints_compute`

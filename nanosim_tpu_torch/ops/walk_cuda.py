@@ -4,8 +4,8 @@
 tensor on the CPU they run the plain version in this module; for a CUDA
 tensor they launch the kernel or raise — there is no fallback.  Each wrapper
 counts its launches in a plain integer attribute (``aligned_steps.launches``)
-so that a run can show it went through the kernel; the aligned wrapper also
-counts them per event budget (``aligned_steps.launches_by_budget``), which
+so that a run can show it went through the kernel, and per shape
+(``launches_by_shape``, keyed by (B, E)): the aligned walk's event budget E
 tells the lean main-path launches from the overflow rescue's full-budget ones.
 
 Both versions compute, per lane, the walk's event words (``pos2x | len << 19 |
@@ -267,12 +267,12 @@ def aligned_steps(walk_keys, m_ref, first_match, match_markov, mixtures, trans,
     if rc != 0:
         raise RuntimeError(f"aligned walk kernel launch failed: cudaError {rc}")
     aligned_steps.launches += 1
-    aligned_steps.launches_by_budget[E] = aligned_steps.launches_by_budget.get(E, 0) + 1
+    aligned_steps.launches_by_shape[B, E] = aligned_steps.launches_by_shape.get((B, E), 0) + 1
     return (ev, *rest.unbind(0))
 
 
 aligned_steps.launches = 0
-aligned_steps.launches_by_budget = {}  # event budget E -> launches at that E
+aligned_steps.launches_by_shape = {}  # (lanes B, event budget E) -> launches
 
 
 def unaligned_steps(walk_keys, m_ref, mixtures, max_steps: int):
@@ -293,7 +293,9 @@ def unaligned_steps(walk_keys, m_ref, mixtures, max_steps: int):
     if rc != 0:
         raise RuntimeError(f"unaligned walk kernel launch failed: cudaError {rc}")
     unaligned_steps.launches += 1
+    unaligned_steps.launches_by_shape[B, E] = unaligned_steps.launches_by_shape.get((B, E), 0) + 1
     return (ev, *rest.unbind(0))
 
 
 unaligned_steps.launches = 0
+unaligned_steps.launches_by_shape = {}  # (lanes B, step budget E) -> launches

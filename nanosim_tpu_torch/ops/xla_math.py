@@ -231,3 +231,66 @@ def pow10_f32(x: torch.Tensor) -> torch.Tensor:
     # XLA's CPU backend flushes subnormal results to zero
     out = torch.where(out < 1.17549435e-38, torch.zeros_like(out), out)
     return torch.where(torch.isnan(x), x, out)
+
+
+# XLA's CPU pipeline rewrites a long row reduction into a tree of windows
+# (TreeReductionRewriter: windows of 32, the padding split low/high with the
+# smaller half low) and a long cumulative sum into a blocked scan
+# (ReduceWindowRewriter: blocks of 16, then a scan of the block totals, the
+# same rewrite again while the totals outnumber a block).  Each window and
+# each block is summed left to right from 0.  XLA's CPU code also treats
+# subnormal inputs as zero; these sums take the weights exp_f32 gives, which
+# are never subnormal.
+_TREE_WINDOW = 32
+_SCAN_BLOCK = 16
+
+
+def _sequential_sum(x: torch.Tensor) -> torch.Tensor:
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def _padded(x: torch.Tensor, low: int, high: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (low, high)) if low or high else x
+
+
+def sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum along the last axis, in the order of XLA CPU's reduce."""
+    n = x.shape[-1]
+    if n <= _TREE_WINDOW:
+        return _sequential_sum(x)
+    m = -(-n // _TREE_WINDOW) * _TREE_WINDOW
+    low = (m - n) // 2
+    xp = _padded(x, low, m - n - low)
+    return sum_f32(_sequential_sum(xp.reshape(*x.shape[:-1], m // _TREE_WINDOW, _TREE_WINDOW)))
+
+
+def logsumexp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.special.logsumexp(x, axis=-1, keepdims=True)`` for float32
+    x as XLA CPU computes it: the row maximum (taken as 0 where it is not
+    finite), ``log(|sum(exp(x - max))|) + max`` with XLA's exp, sum and log."""
+    amax = x.amax(dim=-1, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    s = sum_f32(exp_f32(x - amax))[..., None]
+    return log_f32(s.abs()) + amax
+
+
+def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``jnp.cumsum(x, axis=-1)`` in the order of XLA CPU's blocked
+    scan: left-to-right prefixes within blocks of 16, each block offset by
+    the exclusive prefix of the block totals, which are scanned the same way."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        cols = []
+        for j in range(n):
+            acc = acc + x[..., j]
+            cols.append(acc)
+        return torch.stack(cols, dim=-1)
+    m = -(-n // _SCAN_BLOCK) * _SCAN_BLOCK
+    p = cumsum_f32(_padded(x, 0, m - n).reshape(*x.shape[:-1], m // _SCAN_BLOCK, _SCAN_BLOCK))
+    totals = cumsum_f32(p[..., -1])
+    before = _padded(totals[..., :-1], 1, 0)
+    return (p + before[..., None]).reshape(*x.shape[:-1], m)[..., :n]

@@ -683,6 +683,7 @@ class ChimericReconHandle:
         self.sim = sim
         self.seed = seed
         self.species = species  # [B, S] per-segment species (metagenome)
+        self.decoded = None  # the writer's host view, once decoded
 
 
 class ChimericGenomeSimulator:
@@ -768,8 +769,12 @@ class ChimericGenomeSimulator:
         out = fn(base, torch.as_tensor(np.asarray(slots), device=self.device))
         return pack_chimeric_meta(out).cpu().numpy()
 
-    def run(self, n_reads, writer, seed=0, max_batches=None):
-        """Simulate n_reads chimeric aligned reads into `writer`.
+    def dispatcher(self, seed: int):
+        """The batch entry of a run: ``dispatch(slots)`` queues the run's
+        program on the given slot ids (numpy int64, any number of them) and
+        returns the batch: a ChimericReconHandle on the reconstruction route,
+        the read-emitting program's ChimericBatchOut otherwise.  A multi-host
+        rank calls it on its own slot shard.
 
         Linear DNA without homopolymer mode reconstructs on the host (the
         meta-only program with packed walks, part-keyed C++ walk replays and
@@ -778,36 +783,42 @@ class ChimericGenomeSimulator:
         The route is never changed quietly: without the native library the
         reconstruction route raises."""
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
-
         recon = self.kmer_bias is None and want_recon(self.kw["circular_dna"])
-        if recon:
-            from ..io.native import UnalignedWalkReplayer, WalkReplayer
+        if not recon:
+            fn = self.batch_fn()
 
-            self._seg_replayer = WalkReplayer(
-                self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_WALK,
-                e_guard=self.e_max,
-            )
-            self._gap_replayer = UnalignedWalkReplayer(
-                self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_UNALIGNED_WALK,
-                e_guard=self.gap_steps,
-            )
-            if not (self._seg_replayer.available and self._gap_replayer.available):
-                raise RuntimeError(
-                    "chimeric host reconstruction needs native/fastwriter.cpp built with g++")
-            fn = self.batch_fn(emit_reads=False)
+            def dispatch(slots):
+                return fn(base, torch.as_tensor(slots, device=self.device))
 
-            def make_batch(slot_start):
-                slots = np.arange(slot_start, slot_start + self.batch, dtype=np.int64)
-                out = fn(base, torch.as_tensor(slots, device=self.device))
-                return ChimericReconHandle(pack_chimeric_meta(out), slots, self, seed)
+            return dispatch
 
-            return run_prefetched(make_batch, self.batch, n_reads, writer, self, max_batches)
+        from ..io.native import UnalignedWalkReplayer, WalkReplayer
 
-        fn = self.batch_fn()
+        self._seg_replayer = WalkReplayer(
+            self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_WALK,
+            e_guard=self.e_max,
+        )
+        self._gap_replayer = UnalignedWalkReplayer(
+            self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_UNALIGNED_WALK,
+            e_guard=self.gap_steps,
+        )
+        if not (self._seg_replayer.available and self._gap_replayer.available):
+            raise RuntimeError(
+                "chimeric host reconstruction needs native/fastwriter.cpp built with g++")
+        fn = self.batch_fn(emit_reads=False)
+
+        def dispatch_recon(slots):
+            out = fn(base, torch.as_tensor(slots, device=self.device))
+            return ChimericReconHandle(pack_chimeric_meta(out), slots, self, seed)
+
+        return dispatch_recon
+
+    def run(self, n_reads, writer, seed=0, max_batches=None):
+        """Simulate n_reads chimeric aligned reads into `writer` (the routes
+        of `dispatcher`)."""
+        dispatch = self.dispatcher(seed)
 
         def make_batch(slot_start):
-            slots = torch.arange(slot_start, slot_start + self.batch, dtype=torch.int64,
-                                 device=self.device)
-            return fn(base, slots)
+            return dispatch(np.arange(slot_start, slot_start + self.batch, dtype=np.int64))
 
         return run_prefetched(make_batch, self.batch, n_reads, writer, self, max_batches)

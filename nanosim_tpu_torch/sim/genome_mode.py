@@ -649,24 +649,13 @@ class GenomeSimulator:
             median_len=self.median_len, sd_len=self.sd_len,
         )
 
-    def run(self, n_reads: int, writer, seed: int = 0, max_batches: Optional[int] = None,
-            resume_state: Optional[str] = None):
-        """Simulate n_reads aligned reads into `writer`.
-
-        Linear DNA runs the meta-only program and reconstructs the reads on
-        the host unless NANOSIM_TPU_RECON=0; circular DNA always runs the
-        read-emitting program (the reconstruction covers linear DNA only).
-        Homopolymer mode runs on both; its overflow rescue always goes
-        through the device-materialized program.
-
-        resume_state: path to a (slot cursor, accepted) checkpoint file; if
-        it exists the run continues from it (callers must open the output
-        files in append mode), and it is updated after every batch."""
+    def _fetchers(self, seed: int):
+        """(recon, hp, make_primary, make_rescue): the route of a run and the
+        makers of its batch fetcher and of its overflow rescue's fetcher."""
         from ..io.native import PerfectReplayer, WalkReplayer
         from .output import CompactFetcher
 
         recon = want_recon(self.circular_dna)
-        base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
         est_bases = estimate_mean_aligned(self.profile) * 1.1 + 64
         est_events = est_bases / (estimate_mean_match(self.profile) + 1.0)
         # the replayed walk gives the host the events: on the recon route
@@ -694,17 +683,49 @@ class GenomeSimulator:
             return CompactFetcher(self.batch, est_events, None, with_reads=True,
                                   fastq=self.fastq, est_bases=est_bases, with_prehp=True)
 
-        fetcher = make_hp_fetcher() if hp and not recon else make_fetcher(lazy_replay=True)
-        wrapped = OverflowRescueWriter(self, writer, base,
-                                       make_hp_fetcher if hp else make_fetcher,
-                                       emit_reads=hp or not recon)
-        fn = self.batch_fn(emit_reads=not recon)
+        primary = (make_hp_fetcher if hp and not recon
+                   else functools.partial(make_fetcher, lazy_replay=True))
+        return recon, hp, primary, make_hp_fetcher if hp else make_fetcher
 
-        def make_batch(slot_start):
-            slots = np.arange(slot_start, slot_start + self.batch, dtype=np.int64)
+    def dispatcher(self, seed: int, full_events: bool = False, fetcher=None):
+        """The batch entry of a run: ``dispatch(slots)`` queues the run's
+        program on the given slot ids (numpy int64, any number of them) and
+        returns the batch's handle.  A multi-host rank calls it on its own
+        slot shard, with full_events=True: the rescue-grade program, whose
+        lanes need no rescue (rescued lanes could not be spliced into the
+        sharded numbering)."""
+        if fetcher is None:
+            fetcher = self._fetchers(seed)[2]()
+        fn = self.batch_fn(full_events=full_events, emit_reads=not want_recon(self.circular_dna))
+        base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
+
+        def dispatch(slots):
             h = fetcher.dispatch(fn(base, torch.as_tensor(slots, device=self.device)))
             h.slots = slots
             return h
+
+        return dispatch
+
+    def run(self, n_reads: int, writer, seed: int = 0, max_batches: Optional[int] = None,
+            resume_state: Optional[str] = None):
+        """Simulate n_reads aligned reads into `writer`.
+
+        Linear DNA runs the meta-only program and reconstructs the reads on
+        the host unless NANOSIM_TPU_RECON=0; circular DNA always runs the
+        read-emitting program (the reconstruction covers linear DNA only).
+        Homopolymer mode runs on both; its overflow rescue always goes
+        through the device-materialized program.
+
+        resume_state: path to a (slot cursor, accepted) checkpoint file; if
+        it exists the run continues from it (callers must open the output
+        files in append mode), and it is updated after every batch."""
+        recon, hp, primary, rescue = self._fetchers(seed)
+        base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
+        wrapped = OverflowRescueWriter(self, writer, base, rescue, emit_reads=hp or not recon)
+        dispatch = self.dispatcher(seed, fetcher=primary())
+
+        def make_batch(slot_start):
+            return dispatch(np.arange(slot_start, slot_start + self.batch, dtype=np.int64))
 
         state = ResumeState(resume_state) if resume_state else None
         return run_prefetched(make_batch, self.batch, n_reads, wrapped, self,

@@ -216,10 +216,19 @@ class GenomeBatchWriter:
 
         self._emitter = NativeEmitter()
 
-    def write_batch(self, sim, out, accepted_so_far: int, quota: int) -> int:
+    def accepted(self, sim, out) -> np.ndarray:
+        """The batch's accepted lanes, [B] bool (what write_batch emits)."""
+        return np.asarray(out.fetch()["valid"])
+
+    def write_batch(self, sim, out, accepted_so_far: int, quota: int, lanes=None,
+                    start=None) -> int:
+        """Emit the batch's accepted lanes up to the quota, numbered from
+        accepted_so_far; or, in a multi-host run, the given `lanes` numbered
+        from `start`."""
         d = out.fetch()
-        lanes = np.nonzero(d["valid"])[0][: quota - accepted_so_far]
-        return self.write_run(sim, d, lanes, accepted_so_far)
+        if lanes is None:
+            lanes = np.nonzero(d["valid"])[0][: quota - accepted_so_far]
+        return self.write_run(sim, d, lanes, accepted_so_far if start is None else start)
 
     def write_run(self, sim, cb, lanes, accepted_so_far: int) -> int:
         """Emit already-fetched lanes (in the given order) starting at
@@ -348,9 +357,13 @@ class CompactHandle:
         self.out = out
         self.buf_dev = buf_dev
         self.caps = caps
+        self._fetched = None
 
     def fetch(self):
-        return self.fetcher._fetch(self)
+        """The host view of the batch (one transfer; later calls return it)."""
+        if self._fetched is None:
+            self._fetched = self.fetcher._fetch(self)
+        return self._fetched
 
 
 class CompactFetcher:
@@ -667,6 +680,20 @@ class AsyncBatchWriter:
             self.inner.io_pool = None
 
 
+def merge_files(out_path: str, parts, header: str = ""):
+    """Concatenate per-worker/host subfiles (simulator.py:1626-1639)."""
+    with open(out_path, "wb") as out:
+        if header:
+            out.write(header.encode())
+        for p in parts:
+            with open(p, "rb") as f:
+                while True:
+                    chunk = f.read(8 << 20)
+                    if not chunk:
+                        break
+                    out.write(chunk)
+
+
 class ChimericBatchWriter:
     """Accept/number/emit a chimeric batch (genome or metagenome).
 
@@ -712,6 +739,8 @@ class ChimericBatchWriter:
     def _decode_meta(self, sim, h):
         from .chimeric_mode import decode_chimeric_meta
 
+        if h.decoded is not None:
+            return h.decoded
         S = sim.s_max
         d = decode_chimeric_meta(h.meta_dev.cpu().numpy(), S)
         if d["spill"].any():
@@ -719,7 +748,36 @@ class ChimericBatchWriter:
             # per-slot results via the unpacked program
             RUN_STATS.packed_spills += 1
             d = decode_chimeric_meta(sim.chimeric_meta_unpacked(h.slots, h.seed, h.species), S)
+        h.decoded = d
         return d
+
+    def accepted(self, sim, out) -> np.ndarray:
+        """The batch's accepted lanes, [B] bool (what write_batch emits)."""
+        from .chimeric_mode import ChimericReconHandle
+
+        if isinstance(out, ChimericReconHandle):
+            return self._decode_meta(sim, out)["valid"]
+        return out.valid.cpu().numpy()
+
+    def species_bases_of(self, sim, out, lanes, n_species: int) -> np.ndarray:
+        """Per-species reference bases of the given lanes' segments, [n]
+        int64: the metagenome's quota feedback of a multi-host run."""
+        from .chimeric_mode import ChimericReconHandle
+
+        if isinstance(out, ChimericReconHandle):
+            d = self._decode_meta(sim, out)
+            chrom, n_seg, mref = d["chrom"][lanes], d["n_seg"][lanes], d["seg_mref"][lanes]
+        else:
+            import torch
+
+            lane_t = torch.as_tensor(np.asarray(lanes, np.int64), device=out.valid.device)
+            chrom, n_seg, mref = (x[lane_t].cpu().numpy()
+                                  for x in (out.chrom, out.n_seg, out.seg_middle_ref))
+        seg = np.arange(chrom.shape[1])[None, :] < n_seg[:, None]
+        bases = np.zeros(n_species, np.int64)
+        np.add.at(bases, np.asarray(self.species_of_chrom)[chrom[seg]],
+                  mref[seg].astype(np.int64))
+        return bases
 
     def prepare_recon_chimeric(self, sim, h, accepted_so_far: int, quota: int):
         """Decode a meta-only chimeric batch, select its accepted lanes, and

@@ -1,5 +1,6 @@
 """Top-level simulation runs: the equivalent of the reference's `simulation`
-orchestrator (simulator.py:1571-1672) for genome mode, single host."""
+orchestrator (simulator.py:1571-1672) for genome mode.  Multi-host runs shard
+slot ranges over ranks instead (see parallel/)."""
 
 from __future__ import annotations
 
@@ -38,6 +39,9 @@ def simulate_genome(
     sd_len: Optional[float] = None,
     seed: int = 0,
     batch: int = 256,
+    n_hosts: int = 1,
+    host_id: int = 0,
+    coordinator: Optional[str] = None,
     resume: bool = False,
     device="cuda",
 ) -> dict:
@@ -50,7 +54,15 @@ def simulate_genome(
     or tail, and have no unaligned pass; median_len and sd_len (`-med/-sd`)
     draw both passes' lengths from a lognormal instead of the model's KDEs.
     Returns counters for reporting.  Runs on the card unless `device` says
-    otherwise."""
+    otherwise.
+
+    Multi-host (n_hosts > 1): this process is rank host_id; it simulates its
+    shard of every batch and writes `{out}_..._h{host_id}` files (the aligned
+    reads, the error profile, whose header host 0 writes, and the unaligned
+    reads); concatenating the ranks' shards gives the single-host output up
+    to record order.  With `coordinator` (host:port of rank 0's process
+    group) the ranks are processes that exchange their counts; without it
+    this process emulates the other ranks.  Such a run cannot be resumed."""
     if perfect and chimeric:
         raise ValueError("Perfect reads cannot be chimeric")
     if median_len is not None and chimeric:
@@ -72,6 +84,13 @@ def simulate_genome(
     ext = ".fastq" if fastq else ".fasta"
 
     _log("Start simulation of aligned reads")
+    multi = n_hosts > 1
+    if multi:
+        from ..parallel import MultiHostModeRunner, init_distributed, rank_device
+
+        init_distributed(coordinator, n_hosts if coordinator else None, host_id)
+        device = rank_device(device, host_id)
+    tag = f"_h{host_id}" if multi else ""
     circular = dna_type == "circular"
     if chimeric:
         from .chimeric_mode import ChimericGenomeSimulator
@@ -85,14 +104,23 @@ def simulate_genome(
                               perfect=perfect, median_len=median_len, sd_len=sd_len,
                               device=device)
     state_path = out + "_aligned.resume.json"
-    resuming = resume and os.path.exists(state_path)
-    fw = output.FastxWriter(out + "_aligned_reads" + ext, fastq, append=resuming)
-    el = output.ErrorLogWriter(out + "_aligned_error_profile", header=True, append=resuming)
+    resuming = resume and not multi and os.path.exists(state_path)
+    fw = output.FastxWriter(out + "_aligned_reads" + tag + ext, fastq, append=resuming)
+    el = output.ErrorLogWriter(out + "_aligned_error_profile" + tag, header=(host_id == 0),
+                               append=resuming)
     if chimeric:
-        sim.run(n_aligned, output.ChimericBatchWriter(fw, el), seed=seed)
+        writer = output.ChimericBatchWriter(fw, el)
+        if multi:
+            MultiHostModeRunner(sim, n_hosts, host_id).run(n_aligned, writer, seed=seed)
+        else:
+            sim.run(n_aligned, writer, seed=seed)
     else:
         writer = output.GenomeBatchWriter(fw, el, perfect=perfect)
-        sim.run(n_aligned, writer, seed=seed, resume_state=state_path if resume else None)
+        if multi:
+            MultiHostModeRunner(sim, n_hosts, host_id, full_events=True).run(
+                n_aligned, writer, seed=seed)
+        else:
+            sim.run(n_aligned, writer, seed=seed, resume_state=state_path if resume else None)
     fw.close()
     el.close()
 
@@ -101,8 +129,13 @@ def simulate_genome(
         usim = UnalignedSimulator(genome, prof, fastq=fastq, circular_dna=circular,
                                   min_len=min_len, max_len=max_len, median_len=median_len,
                                   sd_len=sd_len, batch=batch, device=device)
-        ufw = output.FastxWriter(out + "_unaligned_reads" + ext, fastq)
-        usim.run(n_unaligned, UnalignedBatchWriter(ufw), seed=seed)
+        ufw = output.FastxWriter(out + "_unaligned_reads" + tag + ext, fastq)
+        if multi:
+            # sharded like the aligned pass, on the unaligned stream's slots
+            MultiHostModeRunner(usim, n_hosts, host_id).run(n_unaligned,
+                                                            UnalignedBatchWriter(ufw), seed=seed)
+        else:
+            usim.run(n_unaligned, UnalignedBatchWriter(ufw), seed=seed)
         ufw.close()
 
     output.RUN_STATS.report(_log)

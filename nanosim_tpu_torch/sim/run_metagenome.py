@@ -343,49 +343,62 @@ class MetagenomeSimulator:
         """
         return self._phase_a_fetch(self._phase_a_dispatch(base, slots), len(slots))
 
-    def run(self, n_reads, writer, seed=0, max_batches=None, resume_state=None):
-        """Simulate n_reads aligned reads into `writer` (a ChimericBatchWriter
-        with the metagenome hooks).
-
-        Host reconstruction (the meta-only program + part-keyed C++ walk
-        replays + C++ splice/emit; nothing wide crosses the link) unless
-        NANOSIM_TPU_RECON=0 or homopolymer mode.  The route is never changed
-        quietly: without the native library the reconstruction route raises."""
+    def dispatcher(self, seed: int):
+        """The batch entry of a run: ``dispatch(slots, species)`` queues the
+        run's program on the given slot ids (numpy int64, any number of them)
+        with their per-segment species ([len(slots), S] int32) and returns
+        the batch: a ChimericReconHandle from the meta-only program with host
+        reconstruction (the part-keyed C++ walk replays and C++
+        splice/emit; nothing wide crosses the link), or with
+        NANOSIM_TPU_RECON=0 or homopolymer mode the read-emitting program's
+        ChimericBatchOut.  A multi-host rank calls it on its own slot shard.
+        The route is never changed quietly: without the native library the
+        reconstruction route raises."""
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
-
         recon = self.kmer_bias is None and want_recon(False)
-        if recon:
-            from ..io.native import PerfectReplayer, UnalignedWalkReplayer, WalkReplayer
-
-            if self.perfect:
-                # no walks ran: the stand-in verifies zero events per lane
-                self._seg_replayer = PerfectReplayer()
-                self._gap_replayer = PerfectReplayer()
-            else:
-                self._seg_replayer = WalkReplayer(
-                    self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_WALK,
-                    e_guard=self.kw["e_max"],
-                )
-                self._gap_replayer = UnalignedWalkReplayer(
-                    self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_UNALIGNED_WALK,
-                    e_guard=self.kw["gap_steps"],
-                )
-            if not (self._seg_replayer.available and self._gap_replayer.available):
-                raise RuntimeError(
-                    "metagenome host reconstruction needs native/fastwriter.cpp built with g++")
-            fn_meta = self.batch_fn(emit_reads=False)
-
-            def dispatch(slots, species):
-                out = fn_meta(base, torch.as_tensor(slots, device=self.device),
-                              species=torch.as_tensor(species, device=self.device))
-                return ChimericReconHandle(pack_chimeric_meta(out), slots, self, seed,
-                                           species=species)
-        else:
+        if not recon:
             fn = self.batch_fn()
 
             def dispatch(slots, species):
                 return fn(base, torch.as_tensor(slots, device=self.device),
                           species=torch.as_tensor(species, device=self.device))
+
+            return dispatch
+
+        from ..io.native import PerfectReplayer, UnalignedWalkReplayer, WalkReplayer
+
+        if self.perfect:
+            # no walks ran: the stand-in verifies zero events per lane
+            self._seg_replayer = PerfectReplayer()
+            self._gap_replayer = PerfectReplayer()
+        else:
+            self._seg_replayer = WalkReplayer(
+                self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_WALK,
+                e_guard=self.kw["e_max"],
+            )
+            self._gap_replayer = UnalignedWalkReplayer(
+                self.profile, seed, rng.STREAM_ALIGNED, rng.SITE_UNALIGNED_WALK,
+                e_guard=self.kw["gap_steps"],
+            )
+        if not (self._seg_replayer.available and self._gap_replayer.available):
+            raise RuntimeError(
+                "metagenome host reconstruction needs native/fastwriter.cpp built with g++")
+        fn_meta = self.batch_fn(emit_reads=False)
+
+        def dispatch_recon(slots, species):
+            out = fn_meta(base, torch.as_tensor(slots, device=self.device),
+                          species=torch.as_tensor(species, device=self.device))
+            return ChimericReconHandle(pack_chimeric_meta(out), slots, self, seed,
+                                       species=species)
+
+        return dispatch_recon
+
+    def run(self, n_reads, writer, seed=0, max_batches=None, resume_state=None):
+        """Simulate n_reads aligned reads into `writer` (a ChimericBatchWriter
+        with the metagenome hooks), on the routes of `dispatcher`."""
+        base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
+        recon = self.kmer_bias is None and want_recon(False)
+        dispatch = self.dispatcher(seed)
         rng_py = np.random.default_rng(np.random.SeedSequence([seed, 0xA55]))
         accepted = 0
         slot_start = 0
@@ -490,15 +503,28 @@ def simulate_metagenome(
     sd_len=None,
     seed: int = 0,
     batch: int = 128,
+    n_hosts: int = 1,
+    host_id: int = 0,
+    coordinator=None,
     resume: bool = False,
     device="cuda",
 ) -> dict:
-    """Full metagenome run over all samples (simulator.py:2416-2527), one
-    host: per sample `{out}_sample<i>_aligned_reads`, `_aligned_error_profile`
-    and `_unaligned_reads`.  median_len and sd_len (`-med/-sd`) draw the
-    aligned reads' lengths from a lognormal; the unaligned pass keeps its KDE
+    """Full metagenome run over all samples (simulator.py:2416-2527): per
+    sample `{out}_sample<i>_aligned_reads`, `_aligned_error_profile` and
+    `_unaligned_reads`.  median_len and sd_len (`-med/-sd`) draw the aligned
+    reads' lengths from a lognormal; the unaligned pass keeps its KDE
     lengths, as in the JAX package.  Runs on the card unless `device` says
-    otherwise."""
+    otherwise.
+
+    With n_hosts > 1 this process is rank host_id and writes
+    `{out}_{sample}_aligned_*_h{host_id}` shards (their concatenation is the
+    single-host output up to record order; `coordinator` as in
+    run.simulate_genome); the unaligned passes run on host 0."""
+    multi = n_hosts > 1
+    if multi:
+        from ..parallel import MultiHostMetagenomeRunner, init_distributed, rank_device
+
+        device = rank_device(device, host_id)
     device = device_of(device)
     _log("Read in reference")
     mset = MetagenomeSet.from_genome_list(genome_list, dna_type_list)
@@ -558,6 +584,7 @@ def simulate_metagenome(
             device=device,
         )
         prefix = f"{out}_{sample}"
+        tag = f"_h{host_id}" if multi else ""
 
         done_marker = prefix + ".resume_done"
         if resume and os.path.exists(done_marker):
@@ -565,10 +592,11 @@ def simulate_metagenome(
             totals[sample] = aligned_l[s_idx]
             continue
         a_state = prefix + "_aligned.resume.json"
-        a_resuming = resume and os.path.exists(a_state)
-        fw = output.FastxWriter(prefix + "_aligned_reads" + ext, fastq, append=a_resuming)
-        el = output.ErrorLogWriter(prefix + "_aligned_error_profile", header=True,
-                                   append=a_resuming)
+        a_resuming = resume and not multi and os.path.exists(a_state)
+        fw = output.FastxWriter(prefix + "_aligned_reads" + tag + ext, fastq,
+                                append=a_resuming)
+        el = output.ErrorLogWriter(prefix + "_aligned_error_profile" + tag,
+                                   header=(host_id == 0), append=a_resuming)
         w = output.ChimericBatchWriter(
             fw,
             el,
@@ -577,12 +605,17 @@ def simulate_metagenome(
             metagenome=True,
             perfect=perfect,
         )
-        got = sim.run(aligned_l[s_idx], w, seed=seed + s_idx,
-                      resume_state=a_state if resume else None)
+        if multi:
+            init_distributed(coordinator, n_hosts if coordinator else None, host_id)
+            got = MultiHostMetagenomeRunner(sim, n_hosts, host_id).run(
+                aligned_l[s_idx], w, seed=seed + s_idx)
+        else:
+            got = sim.run(aligned_l[s_idx], w, seed=seed + s_idx,
+                          resume_state=a_state if resume else None)
         fw.close()
         el.close()
 
-        if not perfect and unaligned_l[s_idx] > 0:
+        if not perfect and unaligned_l[s_idx] > 0 and host_id == 0:
             from .unaligned_mode import UnalignedBatchWriter, UnalignedSimulator
 
             usim = UnalignedSimulator(

@@ -29,8 +29,7 @@ from ..profiles import profile as profile_mod
 from . import extract, output
 from .bundles import build_tables, plan_event_budget, plan_ht_capacity, plan_ref_capacity
 from .genome_mode import ResumeState, device_of, run_prefetched
-from .transcriptome_mode import (TrxReconHandle, decode_trx_meta, pack_trx_meta,
-                                 transcriptome_batch)
+from .transcriptome_mode import TrxReconHandle, pack_trx_meta, transcriptome_batch
 
 POLYA_SCALE = {"albacore": 2.409858743694814, "guppy": 4.168299657168961}
 
@@ -76,10 +75,23 @@ class TrxBatchWriter:
             raise RuntimeError("the transcriptome writer needs native/fastwriter.cpp built "
                                "with g++")
 
-    def write_batch(self, sim, out, accepted_so_far: int, quota: int) -> int:
+    def accepted(self, sim, out) -> np.ndarray:
+        """The batch's accepted lanes, [B] bool (what write_batch emits)."""
         if isinstance(out, TrxReconHandle):
-            return _trx_recon_write(self, sim, out, accepted_so_far, quota)
-        lanes = np.nonzero(out.valid.cpu().numpy())[0][: quota - accepted_so_far]
+            return out.decoded()["valid"]
+        return out.valid.cpu().numpy()
+
+    def write_batch(self, sim, out, accepted_so_far: int, quota: int, lanes=None,
+                    start=None) -> int:
+        """Emit the batch's accepted lanes up to the quota, numbered from
+        accepted_so_far; or, in a multi-host run, the given `lanes` numbered
+        from `start`."""
+        if lanes is None:
+            lanes = np.nonzero(self.accepted(sim, out))[0][: quota - accepted_so_far]
+        if start is not None:
+            accepted_so_far = start
+        if isinstance(out, TrxReconHandle):
+            return _trx_recon_write(self, sim, out, lanes, accepted_so_far)
         k = len(lanes)
         if k == 0:
             return 0
@@ -190,10 +202,10 @@ class TrxBatchWriter:
         return rows
 
 
-def _trx_recon_write(writer, sim, h, accepted_so_far: int, quota: int) -> int:
-    """Host-reconstruct + emit a meta-only transcriptome batch."""
-    d = decode_trx_meta(h.meta_dev.cpu().numpy(), h.n_iv, h.F)
-    lanes = np.nonzero(d["valid"])[0][: quota - accepted_so_far]
+def _trx_recon_write(writer, sim, h, lanes, accepted_so_far: int) -> int:
+    """Host-reconstruct + emit the given lanes of a meta-only transcriptome
+    batch, numbered from accepted_so_far."""
+    d = h.decoded()
     k = len(lanes)
     if k == 0:
         return 0
@@ -270,8 +282,10 @@ def _trx_recon_write(writer, sim, h, accepted_so_far: int, quota: int) -> int:
 
 class TranscriptomeSimulator:
     """Host side of the aligned transcriptome pass: batches, slot
-    accounting, acceptance, output.  Runs on the card unless `device` says
-    otherwise."""
+    accounting, acceptance, output.  exact_conditional draws the aligned
+    lengths from the 2D KDE's exact conditional (KdeDevice.sample_conditional)
+    instead of the reference's nearest-of-a-pool estimator.  Runs on the card
+    unless `device` says otherwise."""
 
     def __init__(
         self,
@@ -291,10 +305,6 @@ class TranscriptomeSimulator:
         exact_conditional: bool = False,
         device="cuda",
     ):
-        if exact_conditional:
-            raise NotImplementedError(
-                "exact_conditional=True (the exact 2D-KDE conditional) is not ported to the "
-                "PyTorch package yet")
         if fastq and profile.base_quals is None:
             raise ValueError("fastq=True needs a profile loaded with fastq=True")
         if kmer_bias is not None and not perfect and profile.hp_params is None:
@@ -365,6 +375,7 @@ class TranscriptomeSimulator:
             l_cap=self.l_cap, l_out=self.l_out, ht_cap=self.ht_cap, e_max=self.e_max,
             fastq=fastq, perfect=perfect, uracil=uracil, polya_scale=polya_scale,
             with_ir=with_ir, kmer_bias=kmer_bias, hp_r_max=max(128, self.l_cap // 32),
+            exact_conditional=exact_conditional,
         )
 
     def batch_fn(self, emit_reads: bool = True):
@@ -377,22 +388,22 @@ class TranscriptomeSimulator:
             ir_genome=self.ir_genome_dev, emit_reads=emit_reads, **self.kw,
         )
 
-    def run(self, n_reads, writer, seed=0, max_batches=None, resume_state=None):
-        """Simulate n_reads aligned reads into `writer`: the meta-only
-        program with host reconstruction (about 130 bytes per lane cross the
-        link), or with `-hp` or NANOSIM_TPU_RECON=0 the read-emitting one."""
+    def dispatcher(self, seed: int):
+        """The batch entry of a run: ``dispatch(slots)`` queues the run's
+        program on the given slot ids (numpy int64, any number of them) and
+        returns the batch: a TrxReconHandle from the meta-only program with
+        host reconstruction (about 130 bytes per lane cross the link), or with
+        `-hp` or NANOSIM_TPU_RECON=0 the read-emitting program's TrxBatchOut.
+        A multi-host rank calls it on its own slot shard."""
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
-        state = ResumeState(resume_state) if resume_state else None
         recon = self.kmer_bias is None and os.environ.get("NANOSIM_TPU_RECON", "1") != "0"
         if not recon:
             fn = self.batch_fn()
 
-            def make_batch(slot_start):
-                return fn(base, torch.arange(slot_start, slot_start + self.batch,
-                                             dtype=torch.int64, device=self.device))
+            def dispatch(slots):
+                return fn(base, torch.as_tensor(slots, device=self.device))
 
-            return run_prefetched(make_batch, self.batch, n_reads, writer, self, max_batches,
-                                  state=state)
+            return dispatch
 
         from ..io.native import PerfectReplayer, WalkReplayer
         from .ir import MAX_IR_OUT
@@ -410,15 +421,25 @@ class TranscriptomeSimulator:
         n_iv = min(MAX_IR_OUT, self.ir_tables.f_max) if self.with_ir else 1
         F = self.ir_tables.f_max if self.with_ir else 1
 
-        def make_batch(slot_start):
-            slots = np.arange(slot_start, slot_start + self.batch, dtype=np.int64)
+        def dispatch_recon(slots):
             out = fn_meta(base, torch.as_tensor(slots, device=self.device))
             if self.with_ir:
                 irc = self.ir_tables.chrom[self.ir_tables.feat_offset[out.trx.long()].long()]
             else:
-                irc = torch.zeros(self.batch, dtype=torch.int32, device=self.device)
+                irc = torch.zeros(len(slots), dtype=torch.int32, device=self.device)
             return TrxReconHandle(pack_trx_meta(out, irc), slots, self, seed, n_iv, F)
 
+        return dispatch_recon
+
+    def run(self, n_reads, writer, seed=0, max_batches=None, resume_state=None):
+        """Simulate n_reads aligned reads into `writer` (the routes of
+        `dispatcher`)."""
+        dispatch = self.dispatcher(seed)
+
+        def make_batch(slot_start):
+            return dispatch(np.arange(slot_start, slot_start + self.batch, dtype=np.int64))
+
+        state = ResumeState(resume_state) if resume_state else None
         return run_prefetched(make_batch, self.batch, n_reads, writer, self, max_batches,
                               state=state)
 
@@ -445,6 +466,8 @@ def simulate_transcriptome(
     seed: int = 0,
     batch: int = 256,
     n_hosts: int = 1,
+    host_id: int = 0,
+    coordinator=None,
     resume: bool = False,
     device="cuda",
 ) -> dict:
@@ -452,10 +475,18 @@ def simulate_transcriptome(
     simulator.py:2322-2414): aligned reads (cDNA or direct RNA with
     `uracil`, polyA tails with `polya` + `basecaller`, intron retention with
     `model_ir` and the genome `ref_g`, `-hp` with `kmer_bias`, `--perfect`),
-    then unaligned reads.  Runs on the card unless `device` says otherwise;
-    one host only."""
-    if n_hosts > 1:
-        raise NotImplementedError("multi-host runs are not ported to the PyTorch package yet")
+    then unaligned reads.  Runs on the card unless `device` says otherwise.
+
+    With n_hosts > 1 this process is rank host_id and writes
+    `{out}_aligned_*_h{host_id}` shards of the aligned pass (their
+    concatenation is the single-host output up to record order; `coordinator`
+    as in run.simulate_genome); the unaligned pass runs on host 0."""
+    multi = n_hosts > 1
+    if multi:
+        from ..parallel import MultiHostModeRunner, init_distributed, rank_device
+
+        init_distributed(coordinator, n_hosts if coordinator else None, host_id)
+        device = rank_device(device, host_id)
     _log("Read in reference transcriptome")
     transcriptome = PackedGenome.from_fasta(ref_t)
     ir_genome = None
@@ -482,16 +513,21 @@ def simulate_transcriptome(
         polya_scale=polya_scale, model_ir=model_ir, ir_genome=ir_genome, max_len=max_len,
         batch=batch, kmer_bias=kmer_bias, device=device,
     )
+    tag = f"_h{host_id}" if multi else ""
     state_path = out + "_aligned.resume.json"
-    resuming = resume and os.path.exists(state_path)
-    fw = output.FastxWriter(out + "_aligned_reads" + ext, fastq, append=resuming)
-    el = output.ErrorLogWriter(out + "_aligned_error_profile", header=True, append=resuming)
-    sim.run(n_aligned[0], TrxBatchWriter(fw, el, perfect=perfect), seed=seed,
-            resume_state=state_path if resume else None)
+    resuming = resume and not multi and os.path.exists(state_path)
+    fw = output.FastxWriter(out + "_aligned_reads" + tag + ext, fastq, append=resuming)
+    el = output.ErrorLogWriter(out + "_aligned_error_profile" + tag, header=(host_id == 0),
+                               append=resuming)
+    writer = TrxBatchWriter(fw, el, perfect=perfect)
+    if multi:
+        MultiHostModeRunner(sim, n_hosts, host_id).run(n_aligned[0], writer, seed=seed)
+    else:
+        sim.run(n_aligned[0], writer, seed=seed, resume_state=state_path if resume else None)
     fw.close()
     el.close()
 
-    if not perfect and n_unaligned[0] > 0:
+    if not perfect and n_unaligned[0] > 0 and host_id == 0:
         from .unaligned_mode import UnalignedBatchWriter, UnalignedSimulator
 
         _log("Start simulation of random reads")

@@ -123,11 +123,14 @@ def transcriptome_batch(
     hp_r_max: int = 256,
     ir_tables=None,  # ir.IRTables when with_ir
     ir_genome: Optional[extract.GenomeDevice] = None,
+    exact_conditional: bool = False,
     emit_reads: bool = True,
 ) -> TrxBatchOut:
     """The aligned transcriptome batch program: read-emitting, or with
     emit_reads=False the meta-only one (plain aligned path, no -hp), which
-    accepts the same lanes."""
+    accepts the same lanes.  exact_conditional draws the aligned length from
+    the 2D KDE's exact conditional instead of the reference's
+    nearest-of-a-pool estimator."""
     if not emit_reads and kmer_bias is not None:
         raise ValueError("the meta-only transcriptome program supports the plain aligned path")
     B = slots.shape[0]
@@ -140,19 +143,30 @@ def transcriptome_batch(
 
     # aligned length given transcript length, rejected until < transcript
     # length (simulator.py:1098-1104): the reference's nearest-of-pool
-    # estimator, two rounds of a pool of K
+    # estimator, two rounds of a pool of K; or with exact_conditional four
+    # rounds of the exact conditional (the same site, drawn as (4, 2))
     aligned = torch.zeros(B, dtype=torch.int32, device=dev)
     got = torch.zeros(B, dtype=torch.bool, device=dev)
-    K = 256
-    u2 = rng.uniform_per_slot(sk, rng.SITE_ALIGNED_2D, (2, K, 3))
     lo = torch.tensor(1e-7, dtype=torch.float32, device=dev)
     hi = torch.tensor(1 - 1e-7, dtype=torch.float32, device=dev)
-    for r in range(2):
-        comp = u2[:, r, :, 0]
-        z0 = _ndtri(torch.minimum(torch.maximum(u2[:, r, :, 1], lo), hi))
-        z1 = _ndtri(torch.minimum(torch.maximum(u2[:, r, :, 2], lo), hi))
-        cand = tables.kde_aligned_2d.sample_nearest_pool(
-            trx_len.to(torch.float32), comp, z0, z1).to(torch.int32)
+    cond = trx_len.to(torch.float32)
+    if exact_conditional:
+        u2 = rng.uniform_per_slot(sk, rng.SITE_ALIGNED_2D, (4, 2))
+        rounds = 4
+    else:
+        K = 256
+        u2 = rng.uniform_per_slot(sk, rng.SITE_ALIGNED_2D, (2, K, 3))
+        rounds = 2
+    for r in range(rounds):
+        if exact_conditional:
+            z = _ndtri(torch.minimum(torch.maximum(u2[:, r, 1], lo), hi))
+            cand = tables.kde_aligned_2d.sample_conditional(cond, u2[:, r, 0], z)
+        else:
+            comp = u2[:, r, :, 0]
+            z0 = _ndtri(torch.minimum(torch.maximum(u2[:, r, :, 1], lo), hi))
+            z1 = _ndtri(torch.minimum(torch.maximum(u2[:, r, :, 2], lo), hi))
+            cand = tables.kde_aligned_2d.sample_nearest_pool(cond, comp, z0, z1)
+        cand = cand.to(torch.int32)
         ok = (cand > 0) & (cand < trx_len)
         take = (~got) & ok
         aligned = torch.where(take, cand, aligned)
@@ -358,3 +372,10 @@ class TrxReconHandle:
         self.seed = seed
         self.n_iv = n_iv
         self.F = F
+        self._decoded = None
+
+    def decoded(self) -> dict:
+        """The host view of the batch's metadata (one transfer)."""
+        if self._decoded is None:
+            self._decoded = decode_trx_meta(self.meta_dev.cpu().numpy(), self.n_iv, self.F)
+        return self._decoded

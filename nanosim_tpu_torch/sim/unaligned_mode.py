@@ -140,13 +140,23 @@ class UnalignedBatchWriter:
         self.fastx = fastx
         self._emitter = None
 
-    def write_batch(self, sim, out, accepted_so_far: int, quota: int) -> int:
+    def accepted(self, sim, out) -> np.ndarray:
+        """The batch's accepted lanes, [B] bool (what write_batch emits)."""
+        cb = out.fetch()
+        return cb.valid & ~cb.cap_over
+
+    def write_batch(self, sim, out, accepted_so_far: int, quota: int, lanes=None,
+                    start=None) -> int:
         """Emit a compact batch: reconstructed on the host from a meta-only
-        batch, or decoded from the read-emitting program's 2-bit reads."""
+        batch, or decoded from the read-emitting program's 2-bit reads.  A
+        multi-host run passes its own `lanes`, numbered from `start`."""
         cb = out.fetch()
         if getattr(cb, "finish", None) is not None:
             cb.finish()  # lazy walk replay
-        lanes = np.nonzero(cb.valid & ~cb.cap_over)[0][: quota - accepted_so_far]
+        if lanes is None:
+            lanes = np.nonzero(self.accepted(sim, out))[0][: quota - accepted_so_far]
+        if start is not None:
+            accepted_so_far = start
         if len(lanes) == 0:
             return 0
         g = sim.genome_host
@@ -250,12 +260,16 @@ class UnalignedSimulator:
             emit_reads=emit_reads, **self.kw
         )
 
-    def run(self, n_reads, writer, seed=0, max_batches=None, resume_state=None):
-        """Linear DNA runs the meta-only program with host reconstruction
+    def dispatcher(self, seed: int):
+        """The batch entry of a run: ``dispatch(slots)`` queues the run's
+        program on the given slot ids (numpy int64, any number of them; the
+        pass keys them off STREAM_UNALIGNED) and returns the batch's handle.
+        A multi-host rank calls it on its own slot shard.
+
+        Linear DNA runs the meta-only program with host reconstruction
         unless NANOSIM_TPU_RECON=0; circular DNA and direct RNA reads
         (`uracil`, moved as raw bytes) the read-emitting one."""
         from ..io.native import UnalignedWalkReplayer
-        from .genome_mode import ResumeState, run_prefetched
         from .output import CompactFetcher
 
         recon = want_recon(self.circular_dna) and not self.uracil
@@ -273,11 +287,22 @@ class UnalignedSimulator:
                                  pack_reads=not self.uracil)
         fn = self.batch_fn(emit_reads=not recon)
 
-        def make_batch(slot_start):
-            slots = np.arange(slot_start, slot_start + self.batch, dtype=np.int64)
+        def dispatch(slots):
             h = fetcher.dispatch(fn(base, torch.as_tensor(slots, device=self.device)))
             h.slots = slots
             return h
+
+        return dispatch
+
+    def run(self, n_reads, writer, seed=0, max_batches=None, resume_state=None):
+        """Simulate n_reads unaligned reads into `writer` (the routes of
+        `dispatcher`)."""
+        from .genome_mode import ResumeState, run_prefetched
+
+        dispatch = self.dispatcher(seed)
+
+        def make_batch(slot_start):
+            return dispatch(np.arange(slot_start, slot_start + self.batch, dtype=np.int64))
 
         state = ResumeState(resume_state) if resume_state else None
         return run_prefetched(make_batch, self.batch, n_reads, writer, self,

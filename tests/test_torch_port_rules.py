@@ -126,22 +126,6 @@ def test_transcriptome_entry_points_default_to_the_card(tmp_path):
     TranscriptomeSimulator(t, prof, expr, device="cpu")
 
 
-def test_exact_conditional_is_refused(tmp_path):
-    """The exact 2D-KDE conditional is not ported: asking for it raises,
-    whatever the device."""
-    from nanosim_tpu_torch.io.genome import PackedGenome
-    from nanosim_tpu_torch.profiles import profile
-    from nanosim_tpu_torch.sim.run_transcriptome import TranscriptomeSimulator
-
-    prefix, trx, exp = _transcriptome_fixture(tmp_path)
-    t = PackedGenome.from_fasta(trx)
-    prof = profile.load_profile(prefix, mode="transcriptome", model_ir=False)
-    expr = profile.load_expression(exp, dict(zip(t.names, (int(x) for x in t.lengths))))
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TranscriptomeSimulator(t, prof, expr, exact_conditional=True, device=device)
-
-
 def test_windowed_gather_wrapper_never_runs_its_plain_version_off_the_cpu():
     """K8's wrapper runs the plain version for CPU tensors only: a CUDA
     tensor it cannot take (a wrong type, a wrong shape) and a tensor on
@@ -181,33 +165,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
         assert "not ported" in res.stderr
 
 
-# options the port does not run yet: the CLI names them and exits 2
-GENOME = ["genome", "-rg", "ref.fa"]
+# the sub-commands' arguments of the option checks below (no files needed)
 TRANSCRIPTOME = ["transcriptome", "-rt", "trx.fa", "-e", "exp.tsv", "--no_model_ir"]
 METAGENOME = ["metagenome", "-gl", "genome_list.tsv", "-a", "abun.tsv"]
-NOT_PORTED_OPTIONS = {
-    "--num_hosts": GENOME + ["--num_hosts", "2"],
-    "transcriptome --num_hosts": TRANSCRIPTOME + ["--num_hosts", "2"],
-    "metagenome --num_hosts": METAGENOME + ["--num_hosts", "2"],
-}
-
-
-@pytest.mark.parametrize("what", sorted(NOT_PORTED_OPTIONS))
-def test_cli_refuses_genome_options_not_ported(capsys, what):
-    from nanosim_tpu_torch import cli
-
-    with pytest.raises(SystemExit) as e:
-        cli.main(NOT_PORTED_OPTIONS[what])
-    assert e.value.code == 2
-    assert f"{what.split()[-1]} is not ported" in capsys.readouterr().err
-
-
-def test_cli_refuses_multi_host_transcriptome_runs():
-    from nanosim_tpu_torch.sim.run_transcriptome import simulate_transcriptome
-
-    with pytest.raises(NotImplementedError, match="not ported"):
-        simulate_transcriptome("trx.fa", "", "exp.tsv", "training", "out", 10, n_hosts=2,
-                               device="cpu")
 
 
 @pytest.mark.parametrize("options,message", [
@@ -314,11 +274,17 @@ def test_cli_accepts_chimeric(tmp_path, extra):
     (["--chimeric", "-med", "5000", "-sd", "1.0"], "Lognormal distributed reads cannot be chimeric",
      1),
     (["--chimeric", "--perfect"], "Perfect reads cannot be chimeric", 1),
-    (["--chimeric", "-x", "10", "--num_hosts", "2"], "--num_hosts is not ported", 2),
+    (["--chimeric", "-x", "10", "--num_hosts", "2"], None, None),
 ], ids=["med-sd", "perfect", "coverage"])
-def test_cli_chimeric_refusals_keep_their_messages(capsys, options, message, code):
+def test_cli_chimeric_refusals_keep_their_messages(tmp_path, capsys, options, message, code):
+    """The chimeric option checks keep their messages; `-x` with
+    `--num_hosts 2` (one process emulating both ranks) passes them and
+    reaches the simulator."""
     from nanosim_tpu_torch import cli
 
+    if message is None:
+        _cli_reaches_the_simulator(tmp_path, options)
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(["genome", "-rg", "ref.fa", *options])
     assert e.value.code == code

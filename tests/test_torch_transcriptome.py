@@ -68,7 +68,7 @@ def fx(tmp_path_factory):
 
 
 def _sims(fx, ir: bool, perfect: bool = False, kmer_bias=None, uracil: bool = False,
-          fastq: bool = True, polya: bool = True):
+          fastq: bool = True, polya: bool = True, exact_conditional: bool = False):
     """(JAX TranscriptomeSimulator, the port's on the CPU), same arguments."""
     from nanosim_tpu.io import PackedGenome as JG
     from nanosim_tpu.profiles import profile as jp
@@ -89,7 +89,7 @@ def _sims(fx, ir: bool, perfect: bool = False, kmer_bias=None, uracil: bool = Fa
         out.append(S(g, prof, expr, fastq=fastq, perfect=perfect, uracil=uracil,
                      polya_scale=POLYA_SCALE["guppy"] if polya else 0.0, model_ir=ir,
                      ir_genome=G.from_fasta(fx["genome"]) if ir else None, batch=B,
-                     kmer_bias=kmer_bias, **extra))
+                     kmer_bias=kmer_bias, exact_conditional=exact_conditional, **extra))
     return out
 
 
@@ -264,6 +264,8 @@ BRANCHES = {  # id -> (ir, emit_reads, simulator options)
     "emit-hp": (False, True, {"kmer_bias": 6}),
     "emit-perfect": (False, True, {"perfect": True}),
     "emit-ir": (True, True, {}),
+    "meta-exact": (False, False, {"exact_conditional": True}),
+    "emit-exact-ir": (True, True, {"exact_conditional": True}),
 }
 
 
@@ -333,15 +335,3 @@ def test_pack_trx_meta_matches_jax(fx):
     _eq(want, got)
     d = tt.decode_trx_meta(got.numpy(), min(16, ts.ir_tables.f_max), ts.ir_tables.f_max)
     assert d["has_ir"].any() and (d["feat_take"].sum(axis=1) >= 0).all()
-
-
-def test_exact_conditional_is_not_ported(fx):
-    from nanosim_tpu_torch.io.genome import PackedGenome
-    from nanosim_tpu_torch.profiles import profile
-    from nanosim_tpu_torch.sim.run_transcriptome import TranscriptomeSimulator
-
-    g = PackedGenome.from_fasta(fx["trx"])
-    prof = profile.load_profile(fx["prefix"], mode="transcriptome")
-    expr = profile.load_expression(fx["exp"], dict(zip(g.names, (int(x) for x in g.lengths))))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TranscriptomeSimulator(g, prof, expr, exact_conditional=True, device="cpu")
