@@ -44,8 +44,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    and K7, both on the warp-per-lane kernel) with the chimeric simulator's
    tables at 1,024 lanes: every variant against its plain version at 256
    steps on 1,024 and on 37 lanes, the exact row-select variants (scan,
-   search, global) against each other on both, the whole step at 8,192 and
-   2,048 steps, K6's `full` against K7's `search` at 8,192 steps bit for bit,
+   search, global) against each other on both, the whole step at 2,048
+   steps (K6's at 8,192 steps cost 12-24 s a run), K6's `full` against K7's
+   `search` at 8,192 steps bit for bit,
    the exact row-select variants against each other at 2,048 steps, and
    walk_ablate.measure_step_costs (counters zeroed just before): ms per
    launch, ns per lane-step and per serial step for every variant, and the
@@ -167,13 +168,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    scaling number).
 20. (run after phase 14, on its fixture) the transcriptome's exact 2D-KDE
    conditional: its small cDNA run's CUDA files equal the CPU's (phase 12);
-   then the cDNA aligned pass at phase 13's configuration, 10,000 reads,
+   then the cDNA aligned pass at phase 13's configuration, 4,000 reads,
    counters zeroed just before and read just after: K1 launched at the
    transcriptome path's shape only (its row carries these launches as
    `launches_exact_conditional`), 0 checksum-fallback lanes, record count,
    ref_base; reads/s, peak device
    memory, a traced byte-identical rerun (device ops per batch), and the
-   default draw's aligned pass timed beside it.
+   default draw's aligned pass timed beside it;
+21. the model-fitting commands, each through the port's CLI as a process of
+   its own: 2,000 reads (and 200 unaligned) simulated on the card with the
+   main path's model, their alignment SAM built from the simulator's own
+   error log (profiles.fixtures.build_sam_from_ground_truth), `characterize
+   genome --fastq -ga`: exit 0, every model file written, its seconds
+   printed, its three error rates within 5% of the reads' own; `simulate
+   genome -c <refit>` of 2,000 reads on the card: K1 and K2 launched, 0
+   checksum-fallback lanes, ref_base checked.  Then at a small size:
+   `characterize transcriptome` (intron retention, `-q`) on a synthetic
+   annotated transcriptome with spliced alignments, `characterize
+   metagenome -c -q` on two species, `quantify -e trans` and `-e meta`,
+   `detect_ir` and `quantify_paf`: each exits 0, and each refit loads with
+   the port's load_profile for its mode (no sklearn or joblib on the card's
+   machine).
 
 The line before the last is the kernels' JSON record: every kernel at every
 shape a path gives it, with that path's launches (`path`: main, circular,
@@ -186,10 +201,10 @@ and the -med/-sd path gives K1 and K2 the main path's, so those carry
 `launches_lognormal`; the multi-host rows (`path` multi-host genome and
 multi-host metagenome --chimeric) carry the ranks' launches at their own
 shape (`launches`, their sum, and `launches_by_rank`);
-the line before it holds the other shapes and the other experiment variants.
-The last line is {"ok": true, "device": {...}}.  `--quick` runs only the
-builds and phases 12-16, 19 and 20 (a short check while working on the
-newest slices); `--kernels` only the builds and the kernels at every path's shapes
+the line before it holds the other shapes and the other experiment
+variants.  The last line is {"ok": true, "device": {...}}.  `--quick` runs
+only the builds and phase 21's small commands (a short check while working
+on the newest slice); `--kernels` only the builds and the kernels at every path's shapes
 (phases 3 and 13, without the walk experiments), driving no path;
 `--experiments` only the builds and the measuring kernels (the walk
 experiments of phase 3, and phase 15).
@@ -1047,8 +1062,8 @@ def phase_experiments(prefix: str, ref: str, card: str):
     JAX package's scripts take them.  Every variant against its plain version
     at 256 steps on 1,024 and on 37 lanes; the exact row-select variants
     (scan, search, global) against each other on both; the whole step
-    (`full`, and `scan` of the row-select experiment) at the scripts' step
-    counts (8,192 and 2,048), where the plain version is timed; K6's `full`
+    (`full`, and `scan` of the row-select experiment) at 2,048 steps, where
+    the plain version is timed (the row's `plain_steps`); K6's `full`
     against K7's `search` (the same function through other match code) at
     8,192 steps, bit for bit; the exact row-select variants against each
     other at 2,048.  Then, with the counters zeroed,
@@ -1104,17 +1119,23 @@ def phase_experiments(prefix: str, ref: str, card: str):
             if not all(torch.equal(x, y) for x, y in zip(got[v], got["scan"])):
                 fail(f"walk_row_select[{v}] differs from `scan` {where}")
 
-    plain_short, plain_full = {}, {}
+    plain_short, plain_full, plain_steps = {}, {}, {}
     ragged = wk[:RAGGED_LANES].contiguous()
     for name, fn, variants, steps, whole, _ in experiments:
         short, short_ragged = {}, {}
         for v in variants:
             short[v], plain_short[name, v] = compare(fn, variants, v, ABLATION_CHECK_STEPS)
             short_ragged[v], _ = compare(fn, variants, v, ABLATION_CHECK_STEPS, ragged)
-        got, plain_full[name] = compare(fn, variants, whole, steps)
+        # K6's plain version runs at the row-select experiment's step count
+        # (its 8,192 steps took 12-24 s); its kernel is held at 8,192 steps
+        # against K7's `search` below
+        plain_steps[name] = min(steps, walk_ablate.ROW_SELECT_STEPS)
+        got, plain_full[name] = compare(fn, variants, whole, plain_steps[name])
+        if plain_steps[name] != steps:
+            got = fn(whole, wk, *t, steps)
         print(f"experiment {name}: {len(variants)} variants equal their plain versions at "
               f"{ABLATION_CHECK_STEPS} steps on {B} and on {RAGGED_LANES} lanes, `{whole}` at "
-              f"{steps} steps (plain {plain_full[name]:.0f} ms)", flush=True)
+              f"{plain_steps[name]} steps (plain {plain_full[name]:.0f} ms)", flush=True)
         if name == "walk_ablation":
             # K7's `search` computes the same function through other match code
             search = walk_ablate.walk_row_select("search", wk, *t, steps)
@@ -1163,7 +1184,8 @@ def phase_experiments(prefix: str, ref: str, card: str):
                 "path": "experiments",
             }
             if v == whole:
-                row.update(plain_ms=plain_full[name], role="record")
+                row.update(plain_ms=plain_full[name], plain_steps=plain_steps[name],
+                           role="record")
             else:  # the plain version of the other variants ran at the short check only
                 row.update(plain_ms_at_check_steps=plain_short[name, v],
                            check_steps=ABLATION_CHECK_STEPS, role="variant")
@@ -1437,6 +1459,7 @@ def phase_path(label: str, d: str, prefix: str, ref: str, n: int, card: str,
     log_s = [0.0]
     zero_counters()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     with timed_hp_log(log_s):
         counts = _run_sim(ref, prefix, out1, n, batch, True, "cuda", dna_type=dna_type,
@@ -1444,7 +1467,9 @@ def phase_path(label: str, d: str, prefix: str, ref: str, n: int, card: str,
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = read_counters()
+    launches["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     print(f"{label} path: {counts} in {dt:.2f}s -> {n / dt:.1f} reads/s on {card}; "
+          f"peak device memory {launches['peak_device_bytes'] / 2**20:.1f} MiB; "
           f"launches {launches}", flush=True)
     if log_s[0]:
         print(f"{label} path: composing the error log from the pre-resize middles took "
@@ -1666,6 +1691,7 @@ TRX_MEAN = 1800
 N_TRX_READS = 10000
 N_TRX_RECON0 = 2000
 N_TRX_HP = 1000
+N_EXACT = 4000  # phase 20: fewer reads than phase 13, to keep the script in its limit
 N_IR_TRX = 2000
 IR_GENOME = 10_000_000
 # exon counts of the longest structures: TTN's longest transcript has 363
@@ -1849,7 +1875,7 @@ def _run_trx_exact(fx: dict, out: str, n: int, batch: int, device: str, seed: in
     return got
 
 
-def phase_exact_conditional_path(d: str, fx: dict, card: str, n: int = N_TRX_READS):
+def phase_exact_conditional_path(d: str, fx: dict, card: str, n: int = N_EXACT):
     """Phase 20: the cDNA aligned pass with the exact 2D-KDE conditional at
     the transcriptome configuration of phase 13 (batch 512, the 2D KDE's
     2,000 points), n reads, counters zeroed just before and read just after:
@@ -2827,6 +2853,218 @@ def phase_multihost(d: str, prefix: str, ref: str, meta_fx: dict, card: str) -> 
     return rows
 
 
+# --- phase 21: the model-fitting commands (characterize, quantify, quantify_paf) ---
+
+N_CHAR = 2000  # aligned reads the genome model is refitted on (and simulated from)
+N_CHAR_UNALIGNED = 200
+CHAR_RATE_TOLERANCE = 0.05  # the refit's error rates against the reads' own
+CHAR_GENOME_FILES = (
+    "_aligned_region.pkl", "_aligned_reads.pkl", "_ht_length.pkl", "_ht_ratio.pkl",
+    "_unaligned_length.pkl", "_strandness_rate", "_reads_alignment_rate", "_match.hist",
+    "_mis.hist", "_ins.hist", "_del.hist", "_error_rate.tsv", "_error_markov_model",
+    "_first_match.hist", "_match_markov_model", "_model_profile",
+    "_base_qualities_model_parameters.tsv")
+
+
+def simulate_with_truth(d: str, ref: str, prefix: str, n: int, n_unaligned: int,
+                        batch: int = BATCH, device: str = "cuda"):
+    """Reads simulated on the card (aligned and unaligned, one FASTQ file)
+    and the alignment SAM built from the simulator's own error log:
+    (reads, SAM, error log)."""
+    from nanosim_tpu_torch.io.fastx import mangle_name, read_fastx
+    from nanosim_tpu_torch.io.genome import PackedGenome
+    from nanosim_tpu_torch.profiles import fixtures, profile
+    from nanosim_tpu_torch.sim import output
+    from nanosim_tpu_torch.sim.genome_mode import GenomeSimulator
+    from nanosim_tpu_torch.sim.unaligned_mode import UnalignedBatchWriter, UnalignedSimulator
+
+    os.makedirs(d, exist_ok=True)
+    genome = PackedGenome.from_fasta(ref)
+    prof = profile.load_profile(prefix, mode="genome", fastq=True)
+    al, un, err = (os.path.join(d, s) for s in ("aligned.fastq", "unaligned.fastq", "errors"))
+    fw, el = output.FastxWriter(al, True), output.ErrorLogWriter(err)
+    GenomeSimulator(genome, prof, fastq=True, batch=batch, device=device).run(
+        n, output.GenomeBatchWriter(fw, el), seed=SEED)
+    fw.close()
+    el.close()
+    ufw = output.FastxWriter(un, True)
+    UnalignedSimulator(genome, prof, fastq=True, batch=batch, device=device).run(
+        n_unaligned, UnalignedBatchWriter(ufw), seed=SEED)
+    ufw.close()
+    records = list(read_fastx(al)) + list(read_fastx(un))
+    errors = {}
+    with open(err) as f:
+        for line in f:
+            nm, key, et, elen, rb, sb = line.rstrip("\n").split("\t")
+            errors.setdefault(nm, []).append((int(key), et, int(elen), rb, sb))
+    reads, sam = os.path.join(d, "reads.fastq"), os.path.join(d, "truth.sam")
+    with open(reads, "w") as f:
+        for name, seq, qual in records:
+            f.write(f"@{name}\n{seq}\n+\n{qual}\n")
+    raw = {mangle_name(name): name for name, _, _ in read_fastx(ref)}
+    fixtures.build_sam_from_ground_truth(genome, records, errors, sam, raw)
+    return reads, sam, err
+
+
+def truth_error_rates(reads: str, err: str) -> dict:
+    """The error rates of the reads' own error log, as the characterization
+    writes them: mismatched, inserted and deleted bases over the reference
+    bases the reads align to."""
+    ref_bases = 0
+    with open(reads) as f:
+        for i, line in enumerate(f):
+            if i % 4 == 0 and "_aligned_" in line:
+                ref_bases += int(line.split("_")[-2])
+    bases = {"mis": 0, "ins": 0, "del": 0}
+    with open(err) as f:
+        for line in f:
+            fields = line.split("\t")
+            bases[fields[2]] += int(fields[3])
+    return {"Mismatch rate": bases["mis"] / ref_bases, "Insertion rate": bases["ins"] / ref_bases,
+            "Deletion rate": bases["del"] / ref_bases}
+
+
+def run_cli(label: str, argv, timeout: int = 600) -> float:
+    """`python -m nanosim_tpu_torch <argv>` as a process of its own: it
+    must exit 0; returns its seconds."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "nanosim_tpu_torch", *argv], cwd=REPO,
+                         capture_output=True, text=True, timeout=timeout)
+    dt = time.time() - t0
+    if res.returncode != 0:
+        fail(f"{label}: exit {res.returncode}: {res.stderr[-3000:]}")
+    print(f"{label}: exit 0 in {dt:.1f}s", flush=True)
+    return dt
+
+
+def phase_characterize(d: str, prefix: str, ref: str, card: str, full: bool = True,
+                       device: str = "cuda"):
+    """Phase 21: the model-fitting commands through the port's CLI, as
+    processes of their own.  `full`: 2,000 reads simulated on the card with
+    the main path's model, `characterize genome --fastq` on them (every
+    model file written, its error rates within 5% of the reads' own), and
+    2,000 reads simulated on the card from the refit (K1 and K2 launched, 0
+    checksum-fallback lanes, ref_base checked).  Then, at a small size,
+    every other command: transcriptome (intron retention, -q), metagenome
+    (-c -q), quantify (-e trans, -e meta), detect_ir and quantify_paf; each
+    refit loads with the port's load_profile for its mode."""
+    import torch
+
+    from nanosim_tpu_torch.io.genome import PackedGenome
+    from nanosim_tpu_torch.profiles import fixtures, profile
+
+    base = os.path.join(d, "characterize")
+    if full:
+        t0 = time.time()
+        gd = os.path.join(base, "genome")
+        reads, sam, err = simulate_with_truth(gd, ref, prefix, N_CHAR, N_CHAR_UNALIGNED)
+        print(f"characterize genome: {N_CHAR} + {N_CHAR_UNALIGNED} reads simulated and their "
+              f"SAM written in {time.time() - t0:.1f}s", flush=True)
+        refit = os.path.join(gd, "refit")
+        secs = run_cli("characterize genome --fastq", [
+            "characterize", "genome", "--fastq", "-i", reads, "-rg", ref, "-ga", sam,
+            "-o", refit])
+        missing = [s for s in CHAR_GENOME_FILES if not os.path.exists(refit + s)]
+        if missing:
+            fail(f"characterize genome wrote no {missing}")
+        want = truth_error_rates(reads, err)
+        got = {}
+        with open(refit + "_error_rate.tsv") as f:
+            for line in f:
+                key, value = line.rstrip("\n").split(":\t")
+                got[key] = float(value)
+        off = {k: got[k] / want[k] - 1 for k in want}
+        print(f"characterize genome: {secs:.1f}s for {N_CHAR + N_CHAR_UNALIGNED} reads; error "
+              "rates refit / reads' own: " + ", ".join(
+                  f"{k} {got[k]:.5f} / {want[k]:.5f}" for k in want), flush=True)
+        if any(abs(x) > CHAR_RATE_TOLERANCE for x in off.values()):
+            fail(f"the refit's error rates are off by more than {CHAR_RATE_TOLERANCE:.0%}: {off}")
+        profile.load_profile(refit, mode="genome", fastq=True)
+        out = os.path.join(gd, "sim")
+        zero_counters()
+        t0 = time.time()
+        counts = _run_sim(ref, refit, out, N_CHAR, BATCH, True, "cuda")
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = read_counters()
+        print(f"simulate genome -c <refit>: {counts} in {dt:.2f}s -> {N_CHAR / dt:.1f} reads/s "
+              f"on {card}; launches {launches}", flush=True)
+        if launches["aligned"] == 0 or launches["unaligned"] == 0:
+            fail(f"simulating from the refit launched no walk: {launches}")
+        if launches["checksum_fallback_lanes"] != 0:
+            fail(f"{launches['checksum_fallback_lanes']} lanes failed the host replay's checksum")
+        names = read_names(out + "_aligned_reads.fastq")
+        if len(names) != counts["aligned"]:
+            fail(f"{len(names)} aligned records, {counts['aligned']} requested")
+        check_error_profile(out + "_aligned_error_profile", PackedGenome.from_fasta(ref))
+        print("simulate genome -c <refit>: ref_base checked", flush=True)
+
+    # the small commands: a synthetic annotated transcriptome with spliced
+    # alignments, and two species simulated on the card
+    t0 = time.time()
+    (genome_fa, trx_fa, annot, trx_reads, g_sam,
+     t_sam) = fixtures.make_transcriptome_alignments(os.path.join(base, "trx"))
+    refit = os.path.join(base, "trx", "refit")
+    run_cli("characterize transcriptome (intron retention, -q)", [
+        "characterize", "transcriptome", "-i", trx_reads, "-rg", genome_fa, "-rt", trx_fa,
+        "-annot", annot, "-ga", g_sam, "-ta", t_sam, "-o", refit, "-q", "--fastq"])
+    profile.load_profile(refit, mode="transcriptome", model_ir=True, fastq=True)
+    if not os.path.exists(refit + "_transcriptome_quantification.tsv"):
+        fail("characterize transcriptome -q wrote no quantification")
+
+    md = os.path.join(base, "meta")
+    os.makedirs(md)
+    small_prefix = os.path.join(md, "model")
+    fixtures.make_model_dir(small_prefix, mean_read_len=800, sd_read_len=250)
+    combined, glist = os.path.join(md, "combined.fa"), os.path.join(md, "genome_list.tsv")
+    with open(combined, "w") as comb, open(glist, "w") as gl:
+        for sp, lens, seed in (("Alpha", [40000, 15000], 31), ("Beta coli", [30000], 32)):
+            fa = os.path.join(md, sp.replace(" ", "_") + ".fa")
+            fixtures.make_reference_fasta(fa, lens, seed=seed, name_prefix=f"s{seed}c")
+            gl.write(f"{sp}\t{fa}\t{60 if sp == 'Alpha' else 40}\n")
+            with open(fa) as f:
+                for line in f:
+                    comb.write(f">{sp.replace(' ', '_')}_{line[1:]}" if line[0] == ">" else line)
+    meta_reads, meta_truth, _ = simulate_with_truth(md, combined, small_prefix, 300, 30, batch=64,
+                                                    device=device)
+    meta_sam = os.path.join(md, "chimeric.sam")
+    fixtures.add_chimeric_pairs(meta_truth, meta_sam, 30)
+    refit = os.path.join(md, "refit")
+    run_cli("characterize metagenome -c -q", [
+        "characterize", "metagenome", "-i", meta_reads, "-gl", glist, "-ga", meta_sam,
+        "-o", refit, "-c", "-q", "--fastq"])
+    profile.load_profile(refit, mode="metagenome", chimeric=True, fastq=True)
+
+    qd = os.path.join(base, "quantify")
+    os.makedirs(qd)
+    run_cli("characterize quantify -e trans", [
+        "characterize", "quantify", "-e", "trans", "-i", trx_reads, "-ta", t_sam,
+        "-o", os.path.join(qd, "trans")])
+    run_cli("characterize quantify -e meta", [
+        "characterize", "quantify", "-e", "meta", "-i", meta_reads, "-gl", glist,
+        "-ga", meta_sam, "-o", os.path.join(qd, "meta")])
+    run_cli("characterize detect_ir", [
+        "characterize", "detect_ir", "-annot", annot, "-ga", g_sam, "-ta", t_sam,
+        "-o", os.path.join(qd, "ir")])
+    for path in ("trans_quantification.tsv", "meta_quantification.tsv", "ir_IR_markov_model",
+                 "ir_IR_info"):
+        if not os.path.exists(os.path.join(qd, path)):
+            fail(f"the quantify / detect_ir commands wrote no {path}")
+    paf, abun = os.path.join(qd, "aln.paf"), os.path.join(qd, "abundance.tsv")
+    with open(paf, "w") as f:
+        f.write("r1\t500\t0\t480\t+\tT1\t1000\t5\t490\t450\t500\t60\n"
+                "r2\t400\t0\t380\t+\tT1\t1000\t2\t400\t370\t400\t60\n"
+                "r3\t300\t0\t290\t+\tT2\t800\t3\t300\t280\t300\t60\n")
+    run_cli("quantify_paf", ["quantify_paf", "-i", paf, "-o", abun])
+    with open(abun) as f:
+        tpm = {row.split("\t")[0]: float(row.split("\t")[2]) for row in f.read().split("\n")[1:]
+               if row}
+    if abs(tpm["T1"] - 2e6 / 3) > 1e3 or abs(tpm["T2"] - 1e6 / 3) > 1e3:
+        fail(f"quantify_paf: {tpm}, not two thirds and one third of a million")
+    print(f"characterize: the small commands passed in {time.time() - t0:.1f}s (no sklearn or "
+          "joblib needed)", flush=True)
+
+
 def report_trace(prof, wall_s: float):
     """Device busy time (sum of kernel and copy self times on the one stream
     in use) against the run's wall time, and the top device consumers.
@@ -2915,10 +3153,8 @@ def main():
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--quick", action="store_true",
-                    help="a check of the newest slices only (builds, the windowed-gather "
-                         "experiment, the transcriptome and --perfect phases with the exact "
-                         "conditional, the metagenome CUDA-against-CPU runs, the multi-host "
-                         "runs); without it every phase runs")
+                    help="a check of the newest slice only (builds, the small "
+                         "characterization commands); without it every phase runs")
     ap.add_argument("--kernels", action="store_true",
                     help="the kernels only (builds, then K1-K5 at every path's shapes against "
                          "their plain versions, timed), driving no path")
@@ -2938,16 +3174,7 @@ def main():
     tmp_root = "/dev/shm" if os.path.isdir("/dev/shm") else None
     with tempfile.TemporaryDirectory(dir=tmp_root) as d:
         if args.quick:
-            phase_gather_window(card)
-            trx_rows, trx_paths, _ = run_trx_slice(d, card)
-            phase_meta_cuda_vs_cpu(d)
-            prefix, ref = make_fixture(os.path.join(d, "bench"), GENOME_MB, 8000, 2200, 2000)
-            mh_rows = phase_multihost(d, prefix, ref, make_meta_path_fixture(d), card)
-            attach_launches(trx_rows, trx_paths, {}, trx_paths)
-            attach_exact_conditional(trx_rows, trx_paths["exact conditional"])
-            trx_rows += mh_rows
-            print(json.dumps({"kernels": [{key: v for key, v in k.items() if key != "role"}
-                                          for k in trx_rows]}))
+            phase_characterize(d, None, None, card, full=False)
             print(json.dumps({"ok": True, "quick": True, "seconds": time.time() - t_start,
                               "device": {"platform": "gpu", "kind": kind, "count": count}}))
             return
@@ -3021,6 +3248,9 @@ def main():
         t_mh = time.time()
         mh_rows = phase_multihost(d, prefix, ref, meta_fx, card)
         print(f"multi-host phase in {time.time() - t_mh:.1f}s", flush=True)
+        t_ch = time.time()
+        phase_characterize(d, prefix, ref, card)
+        print(f"characterize phase in {time.time() - t_ch:.1f}s", flush=True)
     if chi_l["packed_spills"] != 0:
         fail(f"{chi_l['packed_spills']} chimeric batches spilled their packed walk lanes")
     by_path = {"main": main_l, "circular": circ_l, "-hp": hp_l, "chimeric": chi_l,

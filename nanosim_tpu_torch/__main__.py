@@ -3,9 +3,9 @@
 Commands:
   simulate       read simulation (genome, transcriptome and metagenome
                  modes; runs on a CUDA card)
-
-The JAX package's other commands (characterize, quantify_paf) are not ported
-yet.
+  characterize   model fitting from real reads (read_analysis equivalent;
+                 host code, runs on the CPU)
+  quantify_paf   standalone PAF-based transcript abundance EM
 """
 
 import sys
@@ -16,13 +16,19 @@ def main():
         print(__doc__)
         sys.exit(0 if len(sys.argv) >= 2 else 1)
     cmd = sys.argv[1]
+    argv = sys.argv[2:]
     if cmd == "simulate":
         from .cli import main as m
 
-        m(sys.argv[2:])
-    elif cmd in ("characterize", "quantify_paf"):
-        sys.stderr.write(f"{cmd} is not ported to the PyTorch package yet\n")
-        sys.exit(2)
+        m(argv)
+    elif cmd == "characterize":
+        from .cli_analysis import main as m
+
+        m(argv)
+    elif cmd == "quantify_paf":
+        from .characterization.paf_abundance import main as m
+
+        m(argv)
     else:
         print(__doc__)
         sys.exit(1)

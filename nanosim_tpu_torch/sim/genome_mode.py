@@ -579,8 +579,10 @@ class GenomeSimulator:
     circular DNA (a single chromosome) and for NANOSIM_TPU_RECON=0; with
     kmer_bias (homopolymer mode, `-hp -k`) and with perfect (`--perfect`,
     also with `-hp`) on both routes.  The port runs one length bucket: the
-    JAX package's bucketed schedule is opt-in, and never taken with
-    median_len."""
+    JAX package's opt-in bucketed schedule writes the same files as its flat
+    one, and a port of it ran 5x slower on an H100 with 3x the device
+    memory (PERF.md, Findings), so `run(..., bucketed=True)` and
+    NANOSIM_TPU_BUCKETED=1 run the flat schedule here."""
 
     def __init__(
         self,
@@ -707,7 +709,7 @@ class GenomeSimulator:
         return dispatch
 
     def run(self, n_reads: int, writer, seed: int = 0, max_batches: Optional[int] = None,
-            resume_state: Optional[str] = None):
+            resume_state: Optional[str] = None, bucketed: Optional[bool] = None):
         """Simulate n_reads aligned reads into `writer`.
 
         Linear DNA runs the meta-only program and reconstructs the reads on
@@ -715,6 +717,9 @@ class GenomeSimulator:
         read-emitting program (the reconstruction covers linear DNA only).
         Homopolymer mode runs on both; its overflow rescue always goes
         through the device-materialized program.
+
+        bucketed is accepted for the JAX package's signature and changes
+        nothing: its bucketed schedule writes the flat schedule's files.
 
         resume_state: path to a (slot cursor, accepted) checkpoint file; if
         it exists the run continues from it (callers must open the output
