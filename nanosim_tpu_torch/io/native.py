@@ -15,6 +15,8 @@ import sys
 
 import numpy as np
 
+from .. import tracing
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "fastwriter.cpp")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -229,6 +231,7 @@ class NativeEmitter:
     def available(self) -> bool:
         return self.lib is not None
 
+    @tracing.traced("emit.format")
     def emit(
         self,
         reads: np.ndarray,  # [B, L] uint8 (C-contiguous)
@@ -332,6 +335,7 @@ class NativeEmitter:
             self._err_buf[: ew.value].tobytes(),
         )
 
+    @tracing.traced("emit.format")
     def emit_flat(
         self,
         cb,  # sim.compact.CompactBatch with reads (2-bit flat reads)
@@ -427,6 +431,7 @@ class NativeEmitter:
             memoryview(self._err_buf)[: ew.value],
         )
 
+    @tracing.traced("emit.format")
     def emit_recon(
         self,
         cb,  # meta-only sim.compact.CompactBatch (reads_flat is None)
@@ -537,6 +542,7 @@ class NativeEmitter:
             memoryview(self._err_buf)[: ew.value],
         )
 
+    @tracing.traced("emit.format")
     def emit_recon_hp(
         self,
         cb,  # meta-only CompactBatch (reads_flat None; ev_flat = RAW walk)
@@ -666,6 +672,7 @@ class NativeEmitter:
             memoryview(self._err_buf)[: ew.value],
         )
 
+    @tracing.traced("emit.format")
     def emit_recon_unaligned(
         self,
         cb,  # meta-only CompactBatch (reads_flat None; ev_flat replayed)
@@ -742,6 +749,7 @@ class NativeEmitter:
             raise RuntimeError(f"emit_batch_recon_unaligned failed rc={rc}")
         return memoryview(self._fastx_buf)[: fw.value]
 
+    @tracing.traced("emit.format")
     def emit_chimeric_recon(
         self,
         *,
@@ -875,6 +883,7 @@ class NativeEmitter:
             memoryview(self._err_buf)[: ew.value],
         )
 
+    @tracing.traced("emit.format")
     def emit_trx_recon(
         self,
         *,
@@ -997,6 +1006,7 @@ class NativeEmitter:
         packed = np.frombuffer(b"".join(chunks), np.uint8) if chunks else np.zeros(1, np.uint8)
         return packed, packed_off, pos
 
+    @tracing.traced("emit.format")
     def emit_chimeric(
         self,
         reads: np.ndarray,  # [B, L] uint8

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import apply_errors, error_walk, homopolymer, rng, seqops, xla_math
 from . import extract
 from .bundles import SimTables, build_tables, plan_event_budget, plan_ht_capacity, plan_ref_capacity
@@ -635,6 +636,7 @@ CHI_META_SEG = 8  # mref, lnew, off, chrom, pos, mref_init, n_ev, cksum
 CHI_META_GAP = 7  # len, mref_init, chrom, pos, n_steps, middle, cksum
 
 
+@tracing.traced("dispatch.compact")
 def pack_chimeric_meta(out: ChimericBatchOut) -> torch.Tensor:
     """ONE [B, K] int64 transfer with every per-lane scalar the recon writer
     needs (events stay on device; the host replays them)."""
@@ -766,8 +768,11 @@ class ChimericGenomeSimulator:
         because every draw is (slot, part)-addressed."""
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
         fn = self.batch_fn(emit_reads=False, packed_walks=False)
-        out = fn(base, torch.as_tensor(np.asarray(slots), device=self.device))
-        return pack_chimeric_meta(out).cpu().numpy()
+        with tracing.span("dispatch.program"):
+            out = fn(base, torch.as_tensor(np.asarray(slots), device=self.device))
+        meta = pack_chimeric_meta(out)
+        with tracing.span("fetch.copy"):
+            return meta.cpu().numpy()
 
     def dispatcher(self, seed: int):
         """The batch entry of a run: ``dispatch(slots)`` queues the run's
@@ -788,7 +793,8 @@ class ChimericGenomeSimulator:
             fn = self.batch_fn()
 
             def dispatch(slots):
-                return fn(base, torch.as_tensor(slots, device=self.device))
+                with tracing.span("dispatch.program"):
+                    return fn(base, torch.as_tensor(slots, device=self.device))
 
             return dispatch
 
@@ -808,7 +814,8 @@ class ChimericGenomeSimulator:
         fn = self.batch_fn(emit_reads=False)
 
         def dispatch_recon(slots):
-            out = fn(base, torch.as_tensor(slots, device=self.device))
+            with tracing.span("dispatch.program"):
+                out = fn(base, torch.as_tensor(slots, device=self.device))
             return ChimericReconHandle(pack_chimeric_meta(out), slots, self, seed)
 
         return dispatch_recon

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import apply_errors, assemble_cuda, error_walk, homopolymer, rng, seqops, xla_math
 from ..profiles.profile import ReadProfile
 from . import extract
@@ -444,8 +445,9 @@ class OverflowRescueWriter:
             n_real = len(ch)
             if n_real < B:
                 ch = np.concatenate([ch, np.full(B - n_real, ch[-1], np.int64)])
-            h = self._fetcher.dispatch(
-                self._fn(self.base, torch.as_tensor(ch, device=sim.device)))
+            with tracing.span("dispatch.program"):
+                batch_out = self._fn(self.base, torch.as_tensor(ch, device=sim.device))
+            h = self._fetcher.dispatch(batch_out)
             h.slots = ch
             d = h.fetch()
             valid = np.asarray(d["valid"])
@@ -508,6 +510,10 @@ def run_prefetched(make_batch, batch_size: int, quota: int, writer, sim,
     draws make the mapping deterministic).  The checkpointed cursor is the
     first UNCONSUMED batch's slot start — in-flight dispatches beyond it are
     recomputed on resume.
+
+    Each batch's dispatch (`make_batch`) and emission (`writer.write_batch`,
+    the fetch inside it included) are the spans `dispatch` and `emit`, both
+    carrying the batch's first slot (tracing.py).
     """
     from collections import deque
 
@@ -519,14 +525,17 @@ def run_prefetched(make_batch, batch_size: int, quota: int, writer, sim,
     q = deque()
     while accepted < quota:
         while len(q) < depth and (max_batches is None or dispatched < max_batches):
-            q.append(make_batch(slot_start))
+            with tracing.span("dispatch", slot_start):
+                q.append((slot_start, make_batch(slot_start)))
+                tracing.count("batches.dispatched")
             slot_start += batch_size
             dispatched += 1
         if not q:
             break
-        pending = q.popleft()
+        first, pending = q.popleft()
         prev = accepted
-        accepted += writer.write_batch(sim, pending, accepted, quota)
+        with tracing.span("emit", first):
+            accepted += writer.write_batch(sim, pending, accepted, quota)
         report_progress(prev, accepted)
         if state is not None:
             state.checkpoint(writer, slot_start - batch_size * len(q), accepted)
@@ -702,7 +711,9 @@ class GenomeSimulator:
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
 
         def dispatch(slots):
-            h = fetcher.dispatch(fn(base, torch.as_tensor(slots, device=self.device)))
+            with tracing.span("dispatch.program"):
+                out = fn(base, torch.as_tensor(slots, device=self.device))
+            h = fetcher.dispatch(out)
             h.slots = slots
             return h
 

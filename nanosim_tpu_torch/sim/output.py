@@ -23,6 +23,9 @@ import sys
 
 import numpy as np
 
+from .. import tracing
+
+
 class RunStats:
     """Process-wide capacity and verification counters: a workload that
     rescues every batch is silently slower, and a lane whose device walk
@@ -108,7 +111,8 @@ class FastxWriter:
 
     def flush(self):
         if self._buf:
-            self.f.write(b"".join(self._buf))
+            with tracing.span("emit.write"):
+                self.f.write(b"".join(self._buf))
             self._buf = []
             self._buf_bytes = 0
 
@@ -238,6 +242,7 @@ class GenomeBatchWriter:
         return self._write_flat(sim, cb, lanes, accepted_so_far,
                                 with_events=self.error_log is not None and not self.perfect)
 
+    @tracing.traced("emit.names")
     def _lane_names(self, sim, cb, lanes, accepted_so_far: int):
         names = []
         gnames = sim.genome_host.names
@@ -273,16 +278,18 @@ class GenomeBatchWriter:
         kw = {}
         if sim.fastq and cb.reads_flat is None:
             q = sim.tables.qual
-            kw["qual_table"] = (q.breaks.cpu().numpy(), q.vals.cpu().numpy())
+            with tracing.span("fetch.copy"):
+                kw["qual_table"] = (q.breaks.cpu().numpy(), q.vals.cpu().numpy())
         if hp and cb.reads_flat is None:
             # meta-only -hp batch: suppression, pass-1 mutation, exact run
             # resizing and the pre-resize ground-truth log all replay
             # host-side (sim/reconstruct.reconstruct_hp_lane is the spec)
+            with tracing.span("fetch.copy"):
+                hp_tab = (sim.tables.hp_breaks.cpu().numpy(), sim.tables.hp_vals.cpu().numpy())
             fastx_mv, err_mv = self._emitter.emit_recon_hp(
                 cb, lanes, names, g_off=g.offsets[chrom],
                 genome_flat=g.flat, fastq=sim.fastq, write_errors=with_events,
-                k=sim.kmer_bias,
-                hp_tab=(sim.tables.hp_breaks.cpu().numpy(), sim.tables.hp_vals.cpu().numpy()),
+                k=sim.kmer_bias, hp_tab=hp_tab,
                 hp_mis_rate=sim.tables.hp_mis_rate, l_cap=sim.l_cap, **kw,
             )
         else:
@@ -308,19 +315,22 @@ class GenomeBatchWriter:
             edata = bytes(err_mv) if with_events else None
 
             def do_io(fdata=fdata, edata=edata):
-                self.fastx.flush()
-                self.fastx.f.write(fdata)
-                if edata is not None:
-                    self.error_log.write_bytes(edata)
+                with tracing.span("emit.write"):
+                    self.fastx.flush()
+                    self.fastx.f.write(fdata)
+                    if edata is not None:
+                        self.error_log.write_bytes(edata)
 
             io.submit(do_io)
             return len(lanes)
-        self.fastx.flush()
-        self.fastx.f.write(fastx_mv)
-        if with_events:
-            self.error_log.write_bytes(err_mv)
+        with tracing.span("emit.write"):
+            self.fastx.flush()
+            self.fastx.f.write(fastx_mv)
+            if with_events:
+                self.error_log.write_bytes(err_mv)
         return len(lanes)
 
+    @tracing.traced("emit.hp_log")
     def _hp_log_bytes(self, sim, cb, lanes, names) -> bytes:
         """Pre-hp ground-truth log of a device-materialized -hp batch: the
         device's events (suppressed ones carry zero length and are skipped),
@@ -362,7 +372,9 @@ class CompactHandle:
     def fetch(self):
         """The host view of the batch (one transfer; later calls return it)."""
         if self._fetched is None:
-            self._fetched = self.fetcher._fetch(self)
+            with tracing.span("fetch", getattr(self, "slots", None)):
+                tracing.count("batches.fetched")
+                self._fetched = self.fetcher._fetch(self)
         return self._fetched
 
 
@@ -447,6 +459,7 @@ class CompactFetcher:
         """Round capacities up to 256-chunk steps."""
         return max(256, -(-n // 256) * 256)
 
+    @tracing.traced("dispatch.compact")
     def _dispatch(self, out, force_events: bool = False):
         force_events = force_events or self.with_prehp
         caps = (self.nr_cap, self.ne_cap if force_events else 1, self.nq_cap, self.np_cap)
@@ -469,10 +482,13 @@ class CompactFetcher:
         return CompactHandle(self, out, buf, caps)
 
     def _decode(self, buf_dev, B, caps, with_events):
-        return self._c.decode_compact(
-            buf_dev.cpu().numpy(), B, caps[0], caps[1], caps[2], fastq=self.transfer_quals,
-            with_events=with_events or self.with_prehp, with_reads=self.with_reads,
-            np_cap=caps[3], pack_reads=self.pack_reads)
+        with tracing.span("fetch.copy"):
+            buf = buf_dev.cpu().numpy()
+        with tracing.span("fetch.decode"):
+            return self._c.decode_compact(
+                buf, B, caps[0], caps[1], caps[2], fastq=self.transfer_quals,
+                with_events=with_events or self.with_prehp, with_reads=self.with_reads,
+                np_cap=caps[3], pack_reads=self.pack_reads)
 
     def _fetch(self, h: CompactHandle):
         B = h.out.valid.shape[0]
@@ -518,6 +534,7 @@ class CompactFetcher:
             self._replay_events(h, cb)
         return cb
 
+    @tracing.traced("emit.replay")
     def _replay_events(self, h: CompactHandle, cb):
         """Regenerate event lists host-side; fall back to an exact device
         fetch for any lane failing checksum verification."""
@@ -742,12 +759,19 @@ class ChimericBatchWriter:
         if h.decoded is not None:
             return h.decoded
         S = sim.s_max
-        d = decode_chimeric_meta(h.meta_dev.cpu().numpy(), S)
-        if d["spill"].any():
-            # packed lane capacity exceeded (vanishingly rare): identical
-            # per-slot results via the unpacked program
-            RUN_STATS.packed_spills += 1
-            d = decode_chimeric_meta(sim.chimeric_meta_unpacked(h.slots, h.seed, h.species), S)
+        with tracing.span("fetch", h.slots):
+            tracing.count("batches.fetched")
+            with tracing.span("fetch.copy"):
+                meta = h.meta_dev.cpu().numpy()
+            with tracing.span("fetch.decode"):
+                d = decode_chimeric_meta(meta, S)
+            if d["spill"].any():
+                # packed lane capacity exceeded (vanishingly rare): identical
+                # per-slot results via the unpacked program
+                RUN_STATS.packed_spills += 1
+                meta = sim.chimeric_meta_unpacked(h.slots, h.seed, h.species)
+                with tracing.span("fetch.decode"):
+                    d = decode_chimeric_meta(meta, S)
         h.decoded = d
         return d
 
@@ -757,7 +781,8 @@ class ChimericBatchWriter:
 
         if isinstance(out, ChimericReconHandle):
             return self._decode_meta(sim, out)["valid"]
-        return out.valid.cpu().numpy()
+        with tracing.span("fetch.copy"):
+            return out.valid.cpu().numpy()
 
     def species_bases_of(self, sim, out, lanes, n_species: int) -> np.ndarray:
         """Per-species reference bases of the given lanes' segments, [n]
@@ -771,8 +796,9 @@ class ChimericBatchWriter:
             import torch
 
             lane_t = torch.as_tensor(np.asarray(lanes, np.int64), device=out.valid.device)
-            chrom, n_seg, mref = (x[lane_t].cpu().numpy()
-                                  for x in (out.chrom, out.n_seg, out.seg_middle_ref))
+            with tracing.span("fetch.copy"):
+                chrom, n_seg, mref = (x[lane_t].cpu().numpy()
+                                      for x in (out.chrom, out.n_seg, out.seg_middle_ref))
         seg = np.arange(chrom.shape[1])[None, :] < n_seg[:, None]
         bases = np.zeros(n_species, np.int64)
         np.add.at(bases, np.asarray(self.species_of_chrom)[chrom[seg]],
@@ -828,53 +854,56 @@ class ChimericBatchWriter:
         slots = np.asarray(h.slots)
         g = sim.genome_host
 
-        names = [
-            self._name(g.names, start + rank, int(d["n_seg"][b]), d["chrom"][b], d["pos"][b],
-                       d["rev"][b], d["head"][b], d["seg_mref"][b], d["tail"][b],
-                       d["gap_len"][b])
-            for rank, b in enumerate(lanes)
-        ]
+        with tracing.span("emit.names"):
+            names = [
+                self._name(g.names, start + rank, int(d["n_seg"][b]), d["chrom"][b], d["pos"][b],
+                           d["rev"][b], d["head"][b], d["seg_mref"][b], d["tail"][b],
+                           d["gap_len"][b])
+                for rank, b in enumerate(lanes)
+            ]
 
         n_seg_l = d["n_seg"][lanes]
         seg_do = np.arange(S)[None, :] < n_seg_l[:, None]
-        nev_flat = np.where(seg_do, d["n_events"][lanes], 0).reshape(-1)
-        off_flat = np.concatenate([[0], np.cumsum(nev_flat)])[:-1]
-        ev_out = np.zeros(max(int(nev_flat.sum()), 1), np.uint32)
-        ok = sim._seg_replayer.replay(
-            np.repeat(slots[lanes], S), seg_do.reshape(-1).astype(np.uint8),
-            d["seg_mref_init"][lanes].reshape(-1), nev_flat,
-            d["seg_cksum"][lanes].reshape(-1).astype(np.uint32),
-            ev_out, off_flat,
-            part_ids=np.tile(np.arange(S, dtype=np.int64) + rng_mod.PART_SEGMENT_BASE, k),
-        )
-        if not bool((ok | ~seg_do.reshape(-1)).all()):
-            raise RuntimeError(
-                "chimeric segment walk replay failed checksum verification; "
-                "set NANOSIM_TPU_RECON=0 to fall back to device materialization"
+        with tracing.span("emit.replay"):
+            nev_flat = np.where(seg_do, d["n_events"][lanes], 0).reshape(-1)
+            off_flat = np.concatenate([[0], np.cumsum(nev_flat)])[:-1]
+            ev_out = np.zeros(max(int(nev_flat.sum()), 1), np.uint32)
+            ok = sim._seg_replayer.replay(
+                np.repeat(slots[lanes], S), seg_do.reshape(-1).astype(np.uint8),
+                d["seg_mref_init"][lanes].reshape(-1), nev_flat,
+                d["seg_cksum"][lanes].reshape(-1).astype(np.uint32),
+                ev_out, off_flat,
+                part_ids=np.tile(np.arange(S, dtype=np.int64) + rng_mod.PART_SEGMENT_BASE, k),
             )
+            if not bool((ok | ~seg_do.reshape(-1)).all()):
+                raise RuntimeError(
+                    "chimeric segment walk replay failed checksum verification; "
+                    "set NANOSIM_TPU_RECON=0 to fall back to device materialization"
+                )
 
-        gap_do = np.arange(G)[None, :] < (n_seg_l - 1)[:, None]
-        gsteps = np.where(gap_do, d["gap_n_steps"][lanes], 0).reshape(-1)
-        goff_flat = np.concatenate([[0], np.cumsum(gsteps)])[:-1]
-        gev_out = np.zeros(max(int(gsteps.sum()), 1), np.uint32)
-        gok = sim._gap_replayer.replay(
-            np.repeat(slots[lanes], G), gap_do.reshape(-1).astype(np.uint8),
-            d["gap_mref_init"][lanes].reshape(-1), gsteps,
-            d["gap_cksum"][lanes].reshape(-1).astype(np.uint32),
-            gev_out, goff_flat,
-            part_ids=np.tile(np.arange(G, dtype=np.int64) + rng_mod.PART_GAP_BASE, k),
-        )
-        if not bool((gok | ~gap_do.reshape(-1)).all()):
-            raise RuntimeError(
-                "chimeric gap walk replay failed checksum verification; "
-                "set NANOSIM_TPU_RECON=0 to fall back to device materialization"
+            gap_do = np.arange(G)[None, :] < (n_seg_l - 1)[:, None]
+            gsteps = np.where(gap_do, d["gap_n_steps"][lanes], 0).reshape(-1)
+            goff_flat = np.concatenate([[0], np.cumsum(gsteps)])[:-1]
+            gev_out = np.zeros(max(int(gsteps.sum()), 1), np.uint32)
+            gok = sim._gap_replayer.replay(
+                np.repeat(slots[lanes], G), gap_do.reshape(-1).astype(np.uint8),
+                d["gap_mref_init"][lanes].reshape(-1), gsteps,
+                d["gap_cksum"][lanes].reshape(-1).astype(np.uint32),
+                gev_out, goff_flat,
+                part_ids=np.tile(np.arange(G, dtype=np.int64) + rng_mod.PART_GAP_BASE, k),
             )
+            if not bool((gok | ~gap_do.reshape(-1)).all()):
+                raise RuntimeError(
+                    "chimeric gap walk replay failed checksum verification; "
+                    "set NANOSIM_TPU_RECON=0 to fall back to device materialization"
+                )
 
         with_events = self.error_log is not None and not self.perfect
         qt = None
         if sim.fastq:
             qd = sim.tables.qual
-            qt = (qd.breaks.cpu().numpy(), qd.vals.cpu().numpy())
+            with tracing.span("fetch.copy"):
+                qt = (qd.breaks.cpu().numpy(), qd.vals.cpu().numpy())
 
         fastx_mv, err_mv = self._emitter.emit_chimeric_recon(
             seed=h.seed, stream=rng_mod.STREAM_ALIGNED, ht_cap=sim.ht_cap, S=S,
@@ -898,10 +927,11 @@ class ChimericBatchWriter:
             genome_flat=g.flat, fastq=sim.fastq, write_errors=with_events,
             qual_table=qt,
         )
-        self.fastx.flush()
-        self.fastx.f.write(fastx_mv)
-        if with_events:
-            self.error_log.write_bytes(err_mv)
+        with tracing.span("emit.write"):
+            self.fastx.flush()
+            self.fastx.f.write(fastx_mv)
+            if with_events:
+                self.error_log.write_bytes(err_mv)
         if not quota_done:
             self._advance_species_quota(d, lanes)
         return k
@@ -919,7 +949,9 @@ class ChimericBatchWriter:
         import torch
 
         if lanes is None:
-            lanes = np.nonzero(out.valid.cpu().numpy())[0][: quota - accepted_so_far]
+            with tracing.span("fetch.copy"):
+                valid = out.valid.cpu().numpy()
+            lanes = np.nonzero(valid)[0][: quota - accepted_so_far]
         if start is not None:
             accepted_so_far = start
         if len(lanes) == 0:
@@ -930,31 +962,33 @@ class ChimericBatchWriter:
         def host(x):
             return x[lane_t].cpu().numpy()
 
-        total = host(out.total_len)
-        head = host(out.head)
-        tail = host(out.tail)
-        n_seg = host(out.n_seg)
-        seg_mref = host(out.seg_middle_ref)
-        seg_off = host(out.seg_offset)
-        gap_len = host(out.gap_len)
-        chrom = host(out.chrom)
-        pos = host(out.local_pos)
-        rev = host(out.is_reversed)
-        n_events = host(out.n_events)
-        max_total = max(int(total.max()), 1)
-        reads = out.read[lane_t, :max_total].cpu().numpy()
-        quals = out.quals[lane_t, :max_total].cpu().numpy() if sim.fastq else None
+        with tracing.span("fetch.copy"):
+            total = host(out.total_len)
+            head = host(out.head)
+            tail = host(out.tail)
+            n_seg = host(out.n_seg)
+            seg_mref = host(out.seg_middle_ref)
+            seg_off = host(out.seg_offset)
+            gap_len = host(out.gap_len)
+            chrom = host(out.chrom)
+            pos = host(out.local_pos)
+            rev = host(out.is_reversed)
+            n_events = host(out.n_events)
+            max_total = max(int(total.max()), 1)
+            reads = out.read[lane_t, :max_total].cpu().numpy()
+            quals = out.quals[lane_t, :max_total].cpu().numpy() if sim.fastq else None
         hp_mode = getattr(sim, "kmer_bias", None) is not None
 
         g = sim.genome_host
         B = out.valid.shape[0]
         k, S = seg_mref.shape
         with_events = self.error_log is not None and not self.perfect
-        names = [
-            self._name(g.names, accepted_so_far + r, int(n_seg[r]), chrom[r], pos[r], rev[r],
-                       head[r], seg_mref[r], tail[r], gap_len[r])
-            for r in range(k)
-        ]
+        with tracing.span("emit.names"):
+            names = [
+                self._name(g.names, accepted_so_far + r, int(n_seg[r]), chrom[r], pos[r], rev[r],
+                           head[r], seg_mref[r], tail[r], gap_len[r])
+                for r in range(k)
+            ]
         self._advance_species_quota({"chrom": chrom, "n_seg": n_seg, "seg_mref": seg_mref},
                                     np.arange(k))
 
@@ -967,9 +1001,10 @@ class ChimericBatchWriter:
                         + np.asarray(lanes, np.int64)[:, None])[seg_do]
             rows_t = torch.as_tensor(rows_dev, device=dev)
             max_ne = max(int(n_events[seg_do].max()) if seg_do.any() else 0, 1)
-            ev_pos2x = out.ev_pos2x[rows_t, :max_ne].cpu().numpy()
-            ev_type = out.ev_type[rows_t, :max_ne].cpu().numpy()
-            ev_len = out.ev_len[rows_t, :max_ne].cpu().numpy()
+            with tracing.span("fetch.copy"):
+                ev_pos2x = out.ev_pos2x[rows_t, :max_ne].cpu().numpy()
+                ev_type = out.ev_type[rows_t, :max_ne].cpu().numpy()
+                ev_len = out.ev_len[rows_t, :max_ne].cpu().numpy()
         else:
             ev_pos2x = ev_type = ev_len = np.zeros((1, 1), np.int32)
 
@@ -997,24 +1032,30 @@ class ChimericBatchWriter:
                 fastq=sim.fastq,
                 write_errors=with_events,
             )
-            self.fastx.flush()
-            self.fastx.f.write(fastx_bytes)
-            if with_events:
-                self.error_log.write_bytes(err_bytes)
+            with tracing.span("emit.write"):
+                self.fastx.flush()
+                self.fastx.f.write(fastx_bytes)
+                if with_events:
+                    self.error_log.write_bytes(err_bytes)
             return k
 
         # -hp rewrites homopolymer runs AFTER the logged pass-1 mutation, so
         # the log is cut from the pre-resize segment buffers, event by event
-        for r in range(k):
-            self.fastx.write(names[r], reads[r, : total[r]],
-                             quals[r, : total[r]] if sim.fastq else None)
+        with tracing.span("emit.format"):
+            for r in range(k):
+                self.fastx.write(names[r], reads[r, : total[r]],
+                                 quals[r, : total[r]] if sim.fastq else None)
         if with_events:
-            prehp = out.seg_read_prehp[rows_t].cpu().numpy()
-            self.error_log.write_bytes(self._hp_log_bytes(
-                g, names, n_seg, n_events, ev_rows, ev_pos2x, ev_type, ev_len, prehp, chrom, pos))
+            with tracing.span("fetch.copy"):
+                prehp = out.seg_read_prehp[rows_t].cpu().numpy()
+            log = self._hp_log_bytes(g, names, n_seg, n_events, ev_rows, ev_pos2x, ev_type,
+                                     ev_len, prehp, chrom, pos)
+            with tracing.span("emit.write"):
+                self.error_log.write_bytes(log)
         return k
 
     @staticmethod
+    @tracing.traced("emit.hp_log")
     def _hp_log_bytes(g, names, n_seg, n_events, ev_rows, ev_pos2x, ev_type, ev_len, prehp,
                       chrom, pos) -> bytes:
         """The -hp ground-truth log of a device-materialized batch: per read

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..io.genome import PackedGenome
 from ..ops import rng
 from ..profiles import profile as profile_mod
@@ -79,7 +80,8 @@ class TrxBatchWriter:
         """The batch's accepted lanes, [B] bool (what write_batch emits)."""
         if isinstance(out, TrxReconHandle):
             return out.decoded()["valid"]
-        return out.valid.cpu().numpy()
+        with tracing.span("fetch.copy"):
+            return out.valid.cpu().numpy()
 
     def write_batch(self, sim, out, accepted_so_far: int, quota: int, lanes=None,
                     start=None) -> int:
@@ -102,37 +104,40 @@ class TrxBatchWriter:
         def host(x):
             return np.ascontiguousarray(x[lane_t].cpu().numpy())
 
-        total = host(out.total_len)
-        head = host(out.head)
-        tail = host(out.tail)
-        pa = host(out.polya_len)
-        middle_ref = host(out.middle_ref)
-        l_new = host(out.l_new)
-        trx = host(out.trx)
-        pos = host(out.local_pos)
-        rev = host(out.is_reversed)
-        ir_iv = host(out.ir_intervals)
-        n_ir = host(out.n_ir)
-        n_events = host(out.n_events)
-        max_total = max(int(total.max()), 1)
-        reads = np.ascontiguousarray(out.read[lane_t, :max_total].cpu().numpy())
-        quals = (np.ascontiguousarray(out.quals[lane_t, :max_total].cpu().numpy())
-                 if sim.fastq else None)
-        ref_seg = host(out.ref_seg)
         hp_mode = sim.kmer_bias is not None
         with_events = self.error_log is not None and not self.perfect
-        if with_events:
-            max_ne = max(int(n_events.max()), 1)
-            ev_p = np.ascontiguousarray(out.ev_pos2x[lane_t, :max_ne].cpu().numpy())
-            ev_t = np.ascontiguousarray(out.ev_type[lane_t, :max_ne].cpu().numpy())
-            ev_l = np.ascontiguousarray(out.ev_len[lane_t, :max_ne].cpu().numpy())
+        with tracing.span("fetch.copy"):
+            total = host(out.total_len)
+            head = host(out.head)
+            tail = host(out.tail)
+            pa = host(out.polya_len)
+            middle_ref = host(out.middle_ref)
+            l_new = host(out.l_new)
+            trx = host(out.trx)
+            pos = host(out.local_pos)
+            rev = host(out.is_reversed)
+            ir_iv = host(out.ir_intervals)
+            n_ir = host(out.n_ir)
+            n_events = host(out.n_events)
+            max_total = max(int(total.max()), 1)
+            reads = np.ascontiguousarray(out.read[lane_t, :max_total].cpu().numpy())
+            quals = (np.ascontiguousarray(out.quals[lane_t, :max_total].cpu().numpy())
+                     if sim.fastq else None)
+            ref_seg = host(out.ref_seg)
+            if with_events:
+                max_ne = max(int(n_events.max()), 1)
+                ev_p = np.ascontiguousarray(out.ev_pos2x[lane_t, :max_ne].cpu().numpy())
+                ev_t = np.ascontiguousarray(out.ev_type[lane_t, :max_ne].cpu().numpy())
+                ev_l = np.ascontiguousarray(out.ev_len[lane_t, :max_ne].cpu().numpy())
+            prehp = host(out.read_prehp) if hp_mode else None
         names_t = sim.genome_host.names
         kind = "perfect" if self.perfect else "aligned"
-        rec_names = [
-            _lane_name(names_t[trx[r]], pos[r], kind, accepted_so_far + r, n_ir[r], ir_iv[r],
-                       rev[r], head[r], middle_ref[r], tail[r] + pa[r])
-            for r in range(k)
-        ]
+        with tracing.span("emit.names"):
+            rec_names = [
+                _lane_name(names_t[trx[r]], pos[r], kind, accepted_so_far + r, n_ir[r], ir_iv[r],
+                           rev[r], head[r], middle_ref[r], tail[r] + pa[r])
+                for r in range(k)
+            ]
 
         if not hp_mode and not sim.uracil:
             # the per-event ref bases live in the accepted lanes' extracted
@@ -151,13 +156,13 @@ class TrxBatchWriter:
                 start_pos=np.zeros(k, np.int64), genome_flat=ref_seg.reshape(-1),
                 fastq=sim.fastq, write_errors=with_events,
             )
-            self.fastx.flush()
-            self.fastx.f.write(fastx_bytes)
-            if with_events:
-                self.error_log.write_bytes(err_bytes)
+            with tracing.span("emit.write"):
+                self.fastx.flush()
+                self.fastx.f.write(fastx_bytes)
+                if with_events:
+                    self.error_log.write_bytes(err_bytes)
             return k
 
-        prehp = host(out.read_prehp) if hp_mode else None
         rows = []
         for r in range(k):
             seq = reads[r, : total[r]]
@@ -167,7 +172,8 @@ class TrxBatchWriter:
                                            int(n_events[r]), ev_p[r], ev_t[r], ev_l[r],
                                            ref_seg[r], prehp[r] if hp_mode else None))
         if rows:
-            self.error_log.write_bytes("".join(rows).encode())
+            with tracing.span("emit.write"):
+                self.error_log.write_bytes("".join(rows).encode())
         return k
 
     @staticmethod
@@ -212,21 +218,23 @@ def _trx_recon_write(writer, sim, h, lanes, accepted_so_far: int) -> int:
     slots = np.asarray(h.slots)
     trx_host = sim.genome_host
     kind = "perfect" if writer.perfect else "aligned"
-    names = [
-        _lane_name(trx_host.names[d["trx"][b]], d["pos"][b], kind, accepted_so_far + rank,
-                   d["n_ir"][b], d["ir_iv"][b], d["rev"][b], d["head"][b], d["mref"][b],
-                   d["tail"][b] + d["pa"][b])
-        for rank, b in enumerate(lanes)
-    ]
+    with tracing.span("emit.names"):
+        names = [
+            _lane_name(trx_host.names[d["trx"][b]], d["pos"][b], kind, accepted_so_far + rank,
+                       d["n_ir"][b], d["ir_iv"][b], d["rev"][b], d["head"][b], d["mref"][b],
+                       d["tail"][b] + d["pa"][b])
+            for rank, b in enumerate(lanes)
+        ]
 
     # replay the aligned walk for the selected lanes (checksum-verified)
     nev = d["n_events"][lanes]
     off = np.concatenate([[0], np.cumsum(nev)])[:-1]
     ev_out = np.zeros(max(int(nev.sum()), 1), np.uint32)
-    ok = sim._replayer.replay(
-        slots[lanes], np.ones(k, np.uint8), d["mref0"][lanes], nev,
-        d["cksum"][lanes].astype(np.uint32), ev_out, off,
-    )
+    with tracing.span("emit.replay"):
+        ok = sim._replayer.replay(
+            slots[lanes], np.ones(k, np.uint8), d["mref0"][lanes], nev,
+            d["cksum"][lanes].astype(np.uint32), ev_out, off,
+        )
     if not bool(ok.all()):
         raise RuntimeError(
             "transcriptome walk replay failed checksum verification; "
@@ -262,7 +270,8 @@ def _trx_recon_write(writer, sim, h, lanes, accepted_so_far: int) -> int:
     qt = None
     if sim.fastq:
         qd = sim.tables.qual
-        qt = (qd.breaks.cpu().numpy(), qd.vals.cpu().numpy())
+        with tracing.span("fetch.copy"):
+            qt = (qd.breaks.cpu().numpy(), qd.vals.cpu().numpy())
     fastx_mv, err_mv = writer._emitter.emit_trx_recon(
         seed=h.seed, stream=rng.STREAM_ALIGNED, ht_cap=sim.ht_cap,
         slots=slots[lanes], names=names,
@@ -273,10 +282,11 @@ def _trx_recon_write(writer, sim, h, lanes, accepted_so_far: int) -> int:
         src_a=trx_host.flat, src_b=src_b, use_b=use_b, src_off=src_off,
         fastq=sim.fastq, uracil=sim.uracil, write_errors=with_events, qual_table=qt,
     )
-    writer.fastx.flush()
-    writer.fastx.f.write(fastx_mv)
-    if with_events:
-        writer.error_log.write_bytes(err_mv)
+    with tracing.span("emit.write"):
+        writer.fastx.flush()
+        writer.fastx.f.write(fastx_mv)
+        if with_events:
+            writer.error_log.write_bytes(err_mv)
     return k
 
 
@@ -401,7 +411,8 @@ class TranscriptomeSimulator:
             fn = self.batch_fn()
 
             def dispatch(slots):
-                return fn(base, torch.as_tensor(slots, device=self.device))
+                with tracing.span("dispatch.program"):
+                    return fn(base, torch.as_tensor(slots, device=self.device))
 
             return dispatch
 
@@ -422,11 +433,12 @@ class TranscriptomeSimulator:
         F = self.ir_tables.f_max if self.with_ir else 1
 
         def dispatch_recon(slots):
-            out = fn_meta(base, torch.as_tensor(slots, device=self.device))
-            if self.with_ir:
-                irc = self.ir_tables.chrom[self.ir_tables.feat_offset[out.trx.long()].long()]
-            else:
-                irc = torch.zeros(len(slots), dtype=torch.int32, device=self.device)
+            with tracing.span("dispatch.program"):
+                out = fn_meta(base, torch.as_tensor(slots, device=self.device))
+                if self.with_ir:
+                    irc = self.ir_tables.chrom[self.ir_tables.feat_offset[out.trx.long()].long()]
+                else:
+                    irc = torch.zeros(len(slots), dtype=torch.int32, device=self.device)
             return TrxReconHandle(pack_trx_meta(out, irc), slots, self, seed, n_iv, F)
 
         return dispatch_recon

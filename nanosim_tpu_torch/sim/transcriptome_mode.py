@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import apply_errors, error_walk, homopolymer, rng, seqops, xla_math
 from . import extract, ir
 from .bundles import SimTables
@@ -331,6 +332,7 @@ def transcriptome_batch(
 TRX_META_SCALARS = 16  # valid,total,head,tail,pa,mref,lnew,trx,pos,rev,nev,cksum,mref0,has_ir,n_ir,ir_chrom
 
 
+@tracing.traced("dispatch.compact")
 def pack_trx_meta(out: TrxBatchOut, ir_chrom: torch.Tensor) -> torch.Tensor:
     """ONE [B, K] int64 transfer for the reconstruction writer (events stay on
     the device; the host replays them against the checksum)."""
@@ -377,5 +379,10 @@ class TrxReconHandle:
     def decoded(self) -> dict:
         """The host view of the batch's metadata (one transfer)."""
         if self._decoded is None:
-            self._decoded = decode_trx_meta(self.meta_dev.cpu().numpy(), self.n_iv, self.F)
+            with tracing.span("fetch", self.slots):
+                tracing.count("batches.fetched")
+                with tracing.span("fetch.copy"):
+                    meta = self.meta_dev.cpu().numpy()
+                with tracing.span("fetch.decode"):
+                    self._decoded = decode_trx_meta(meta, self.n_iv, self.F)
         return self._decoded

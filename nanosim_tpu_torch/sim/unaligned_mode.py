@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import apply_errors, error_walk, rng, seqops, xla_math
 from . import extract
 from .bundles import SimTables, build_tables
@@ -162,13 +163,14 @@ class UnalignedBatchWriter:
         g = sim.genome_host
         gnames = g.names
         names = []
-        for rank, b in enumerate(lanes):
-            idx = accepted_so_far + rank
-            strand = "R" if cb.rev[b] else "F"
-            names.append(
-                f"{gnames[cb.chrom[b]]}_{cb.pos[b]}_unaligned_{idx}_{strand}"
-                f"_0_{cb.middle_ref[b]}_0"
-            )
+        with tracing.span("emit.names"):
+            for rank, b in enumerate(lanes):
+                idx = accepted_so_far + rank
+                strand = "R" if cb.rev[b] else "F"
+                names.append(
+                    f"{gnames[cb.chrom[b]]}_{cb.pos[b]}_unaligned_{idx}_{strand}"
+                    f"_0_{cb.middle_ref[b]}_0"
+                )
         from ..io.native import NativeEmitter
 
         if self._emitter is None:
@@ -178,19 +180,21 @@ class UnalignedBatchWriter:
         if cb.reads_flat is not None and not cb.pack_reads:
             # raw-byte reads (direct RNA): the Python writer, as the JAX
             # package writes them
-            for name, b in zip(names, lanes):
-                o, n = int(cb.read_off[b]), int(cb.total[b])
-                q = None
-                if sim.fastq:
-                    qo = int(cb.qual_off[b])
-                    q = cb.quals_flat[qo : qo + n]
-                self.fastx.write(name, cb.reads_flat[o : o + n], q)
+            with tracing.span("emit.format"):
+                for name, b in zip(names, lanes):
+                    o, n = int(cb.read_off[b]), int(cb.total[b])
+                    q = None
+                    if sim.fastq:
+                        qo = int(cb.qual_off[b])
+                        q = cb.quals_flat[qo : qo + n]
+                    self.fastx.write(name, cb.reads_flat[o : o + n], q)
             return len(lanes)
         if cb.reads_flat is None:
             qt = None
             if sim.fastq:
                 qd = sim.tables.qual
-                qt = (qd.breaks.cpu().numpy(), qd.vals.cpu().numpy())
+                with tracing.span("fetch.copy"):
+                    qt = (qd.breaks.cpu().numpy(), qd.vals.cpu().numpy())
             mv = self._emitter.emit_recon_unaligned(
                 cb, lanes, names, g_off=g.offsets[chrom], genome_flat=g.flat,
                 fastq=sim.fastq, qual_table=qt,
@@ -201,8 +205,9 @@ class UnalignedBatchWriter:
                 g_circ=np.ascontiguousarray(g.circular[chrom], np.uint8),
                 genome_flat=g.flat, fastq=sim.fastq, write_errors=False,
             )
-        self.fastx.flush()
-        self.fastx.f.write(mv)
+        with tracing.span("emit.write"):
+            self.fastx.flush()
+            self.fastx.f.write(mv)
         return len(lanes)
 
 
@@ -288,7 +293,9 @@ class UnalignedSimulator:
         fn = self.batch_fn(emit_reads=not recon)
 
         def dispatch(slots):
-            h = fetcher.dispatch(fn(base, torch.as_tensor(slots, device=self.device)))
+            with tracing.span("dispatch.program"):
+                out = fn(base, torch.as_tensor(slots, device=self.device))
+            h = fetcher.dispatch(out)
             h.slots = slots
             return h
 

@@ -1,0 +1,180 @@
+"""The port's own spans and counters (`nanosim_tpu_torch.tracing`).
+
+Whole `simulate genome` runs on the CPU at the sizes of the port's run tests,
+in the four traffics of the benchmark's cells: linear FASTQ (host
+reconstruction), circular FASTQ (the read-emitting program), chimeric (linear,
+host reconstruction) and `-hp -k 6` (circular).  Each runs once with no
+profiler and once under `torch.profiler` (CPU activity):
+
+* with no profiler the tracer reads no clock, enters no `record_function`
+  and leaves no rows or counts;
+* under the profiler every span of the path fires, each nested span lies
+  inside its parent, one batch's dispatch, fetch and emit carry its first
+  slot, `batches.fetched` counts the batches consumed, self times are not
+  negative and every row lies inside the job;
+* the files are the same bytes either way.
+"""
+
+import os
+import time
+
+import pytest
+from torch.profiler import ProfilerActivity, profile
+
+from nanosim_tpu_torch import tracing
+from nanosim_tpu_torch.profiles import error_model, fixtures
+from nanosim_tpu_torch.sim import run as trun
+
+import test_torch_common  # noqa: F401  (one torch thread a worker)
+
+SEED = 3
+BATCH = 64
+N = 300
+FILES = ("_aligned_reads.fastq", "_aligned_error_profile", "_unaligned_reads.fastq")
+
+COMMON = {"dispatch", "dispatch.program", "dispatch.compact", "fetch", "fetch.copy",
+          "fetch.decode", "emit", "emit.names", "emit.format", "emit.write"}
+# traffic -> (simulate_genome arguments, the spans its path runs)
+TRAFFICS = {
+    "linear": ({"dna": "linear"}, COMMON | {"emit.replay"}),
+    "circular": ({"dna": "circular"}, COMMON | {"emit.replay"}),
+    "chimeric": ({"dna": "linear", "chimeric": True}, COMMON | {"emit.replay"}),
+    "hp_k6": ({"dna": "circular", "kmer_bias": 6}, COMMON | {"emit.hp_log"}),
+}
+# span -> the spans it may run directly inside: the batch program also runs
+# in the overflow rescue (inside emit) and the packed-lane spill (inside
+# fetch); the compaction also in a repack (fetch), the rescue and the replay
+# fallback; the replay inside fetch where the fetcher replays eagerly
+PARENT = {"dispatch": {None}, "emit": {None},
+          "dispatch.program": {"dispatch", "emit", "fetch"},
+          "dispatch.compact": {"dispatch", "emit", "fetch", "emit.replay"},
+          "fetch": {"emit"}, "fetch.copy": {"fetch", "emit"}, "fetch.decode": {"fetch"},
+          "emit.replay": {"emit", "fetch"}, "emit.names": {"emit"}, "emit.format": {"emit"},
+          "emit.hp_log": {"emit"}, "emit.write": {"emit"}}
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("tracing"))
+    prefix = os.path.join(d, "training")
+    fixtures.make_model_dir(prefix, mean_read_len=500, sd_read_len=150, n_kde_points=200)
+    error_model.write_chimeric_info(prefix + "_chimeric_info", 1.9, 0.2)
+    refs = {"linear": os.path.join(d, "lin.fa"), "circular": os.path.join(d, "circ.fa")}
+    fixtures.make_reference_fasta(refs["linear"], [30000, 15000], seed=6, hp_bias=0.5)
+    fixtures.make_reference_fasta(refs["circular"], [20000], seed=7, hp_bias=0.5)
+    return d, prefix, refs
+
+
+def _simulate(inputs, tag, args):
+    d, prefix, refs = inputs
+    out = os.path.join(d, tag)
+    trun.simulate_genome(refs[args["dna"]], prefix, out, N, seed=SEED, batch=BATCH, fastq=True,
+                         dna_type=args["dna"], chimeric=args.get("chimeric", False),
+                         kmer_bias=args.get("kmer_bias"), device="cpu")
+    return out
+
+
+def _raise(*args, **kwargs):
+    raise AssertionError("the tracer ran with no profiler")
+
+
+@pytest.fixture(scope="module")
+def runs(inputs):
+    """traffic -> (untraced output, traced output, rows, counts, self seconds,
+    clock before and after the traced job), each run made once per module."""
+    done = {}
+
+    def get(traffic):
+        if traffic not in done:
+            args = TRAFFICS[traffic][0]
+            tracing.RECORDER.reset()
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(tracing, "_clock", _raise)
+                mp.setattr(tracing._prof, "record_function", _raise)
+                off = _simulate(inputs, traffic + "_off", args)
+            assert tracing.RECORDER.rows == [] and tracing.RECORDER.counts == {}
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU]):
+                on = _simulate(inputs, traffic + "_on", args)
+            t1 = time.perf_counter()
+            rec = tracing.RECORDER
+            done[traffic] = (off, on, list(rec.rows), dict(rec.counts), rec.self_seconds(), t0, t1)
+        return done[traffic]
+
+    return get
+
+
+def test_span_off_is_one_shared_null_context():
+    assert not tracing.profiling()
+    assert tracing.span("emit", 0) is tracing.span("fetch.copy")
+    with tracing.span("emit", 0) as s:
+        assert s is None
+
+
+def test_recorder_starts_afresh_with_each_session():
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with tracing.span("outer", 7):
+                with tracing.span("inner"):
+                    pass
+            tracing.count("n", 2)
+        tracing.span("after")  # no profiler: no row
+        rec = tracing.RECORDER
+        assert [r[0] for r in rec.rows] == ["inner", "outer"]
+        assert [(r[3], r[4]) for r in rec.rows] == [(1, None), (0, 7)]
+        assert rec.counts == {"n": 2}
+        inner, outer = rec.rows
+        own = rec.self_seconds()
+        assert own["outer"] == pytest.approx((outer[2] - outer[1]) - (inner[2] - inner[1]))
+
+
+@pytest.mark.parametrize("traffic", list(TRAFFICS))
+def test_no_profiler_no_rows(runs, traffic):
+    """The untraced run read no clock and entered no record_function (both
+    patched to raise), and left nothing in the recorder (checked in the
+    fixture); its files are the traced run's bytes."""
+    off, on = runs(traffic)[:2]
+    for suf in FILES:
+        with open(off + suf, "rb") as a, open(on + suf, "rb") as b:
+            assert a.read() == b.read(), suf
+
+
+@pytest.mark.parametrize("traffic", list(TRAFFICS))
+def test_every_span_of_the_path_fires(runs, traffic):
+    rows, counts, own = runs(traffic)[2:5]
+    assert {r[0] for r in rows} == TRAFFICS[traffic][1]
+    assert set(own) == TRAFFICS[traffic][1]
+    assert min(own.values()) >= 0.0
+    assert counts["batches.dispatched"] >= counts["batches.fetched"] > 0
+
+
+@pytest.mark.parametrize("traffic", list(TRAFFICS))
+def test_children_lie_inside_their_parents(runs, traffic):
+    rows = sorted(runs(traffic)[2], key=lambda r: (r[1], r[3]))
+    stack = []
+    for name, s, e, depth, _ in rows:
+        while stack and stack[-1][2] <= s:
+            stack.pop()
+        assert depth == len(stack), name
+        parent = stack[-1] if stack else (None, s, e)
+        assert parent[0] in PARENT[name], (name, parent[0])
+        assert parent[1] <= s <= e <= parent[2], name
+        stack.append((name, s, e))
+
+
+@pytest.mark.parametrize("traffic", list(TRAFFICS))
+def test_batches_share_their_first_slot(runs, traffic):
+    rows, counts = runs(traffic)[2:4]
+    by = {n: [r[4] for r in rows if r[0] == n] for n in ("dispatch", "fetch", "emit")}
+    # each batch consumed is one emit span, and fetched once
+    assert counts["batches.fetched"] == len(by["emit"]) == len(by["fetch"])
+    assert counts["batches.dispatched"] == len(by["dispatch"])
+    assert all(b is not None and b % BATCH == 0 for b in by["emit"])
+    assert sorted(by["emit"]) == sorted(by["fetch"])
+    assert set(by["emit"]) <= set(by["dispatch"])
+
+
+@pytest.mark.parametrize("traffic", list(TRAFFICS))
+def test_rows_lie_inside_the_job(runs, traffic):
+    rows, _, _, t0, t1 = runs(traffic)[2:7]
+    assert rows and all(t0 <= s <= e <= t1 for _, s, e, _, _ in rows)
