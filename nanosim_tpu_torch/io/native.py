@@ -1,9 +1,11 @@
-"""ctypes bridge to the C++ output formatter (native/fastwriter.cpp).
+"""ctypes bridge to the C++ output formatters.
 
-The C++ source is read where it lies in the repository (it is shared with the
-JAX package and not copied); it is compiled with g++ on first use into this
-package's own build directory.  `get_lib` returns None if compilation
-fails; the simulators then refuse to run (the host reconstruction needs it).
+Two libraries, each compiled with g++ on first use into this package's own
+build directory: the writer, native/fastwriter.cpp, read where it lies in the
+repository (it is shared with the JAX package and not copied), and this
+package's composer of the `-hp` ground-truth log, csrc/prehp_log.cpp.
+`get_lib` returns None if either fails to compile; the simulators then
+refuse to run (the host reconstruction and the `-hp` log need them).
 """
 
 from __future__ import annotations
@@ -19,45 +21,68 @@ from .. import tracing
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "fastwriter.cpp")
+_LOG_SRC = os.path.join(_PKG_DIR, "csrc", "prehp_log.cpp")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _LIB = os.path.join(_BUILD_DIR, "libfastwriter.so")
+_LOG_LIB = os.path.join(_BUILD_DIR, "libprehp_log.so")
 
 _lib = None
+_log_lib = None
 _tried = False
 
+_P = ctypes.POINTER
+_I64P = _P(ctypes.c_int64)
+# compose_prehp_log's parameters, in order (csrc/prehp_log.cpp)
+_LOG_ARGTYPES = [
+    ctypes.c_int64, _I64P, ctypes.c_int64,  # k, lanes, lanes in the batch
+    ctypes.c_char_p, _I64P,  # names, name offsets
+    _P(ctypes.c_uint32), ctypes.c_int64, _I64P, _I64P,  # events, words, offsets, counts
+    _P(ctypes.c_uint8), ctypes.c_int64, _I64P, _I64P,  # middles, bytes, offsets, lengths
+    _I64P, _I64P,  # chrom, pos
+    _P(ctypes.c_uint8), ctypes.c_int64, _I64P, _I64P, _P(ctypes.c_uint8),
+    ctypes.c_int64,  # genome flat, its length, offsets, lengths, circular, chromosomes
+    _P(ctypes.c_char), ctypes.c_int64, _I64P, _I64P,  # out, capacity, written, logged
+    ctypes.c_int32,  # threads
+]
 
-def _build() -> bool:
+
+def _build(src: str, lib: str) -> bool:
     try:
-        if os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
+        if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
             return True
         os.makedirs(_BUILD_DIR, exist_ok=True)
         # per-process temporary: concurrent first uses (test workers) must
         # not interleave their outputs
-        tmp = f"{_LIB}.{os.getpid()}.tmp"
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", _SRC, "-o", tmp]
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", src, "-o", tmp]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
-            print("fastwriter build failed:", res.stderr[-500:], file=sys.stderr)
+            print(os.path.basename(src), "build failed:", res.stderr[-500:], file=sys.stderr)
             return False
-        os.replace(tmp, _LIB)
+        os.replace(tmp, lib)
         return True
     except (OSError, subprocess.SubprocessError) as e:
-        print("fastwriter build error:", e, file=sys.stderr)
+        print(os.path.basename(src), "build error:", e, file=sys.stderr)
         return False
 
 
 def get_lib():
-    global _lib, _tried
+    """The writer's library, after building and loading both libraries
+    (None if either fails)."""
+    global _lib, _log_lib, _tried
     if _lib is None and not _tried:
         _tried = True
-        if _build():
+        if _build(_SRC, _LIB) and _build(_LOG_SRC, _LOG_LIB):
             lib = ctypes.CDLL(_LIB)
             for name in ("replay_walk_batch", "emit_batch_recon", "emit_batch_flat",
                          "replay_unaligned_walk_batch", "emit_batch_recon_unaligned",
                          "emit_batch_recon_hp", "emit_chimeric_recon",
                          "emit_chimeric_batch", "emit_batch", "emit_trx_recon"):
                 getattr(lib, name).restype = ctypes.c_int64
-            _lib = lib
+            log_lib = ctypes.CDLL(_LOG_LIB)
+            log_lib.compose_prehp_log.argtypes = _LOG_ARGTYPES
+            log_lib.compose_prehp_log.restype = ctypes.c_int64
+            _lib, _log_lib = lib, log_lib
     return _lib
 
 
@@ -223,6 +248,7 @@ class NativeEmitter:
 
     def __init__(self):
         self.lib = get_lib()
+        self._log_lib = _log_lib
         self._fastx_buf = np.empty(8 << 20, np.uint8)
         self._err_buf = np.empty(8 << 20, np.uint8)
         self._mid_buf = np.empty(1 << 20, np.uint8)
@@ -230,6 +256,52 @@ class NativeEmitter:
     @property
     def available(self) -> bool:
         return self.lib is not None
+
+    def prehp_log(self, cb, lanes, names: list, genome, n_threads: int = 0):
+        """The pre-resize ground-truth log of a device-materialized `-hp`
+        batch (csrc/prehp_log.cpp; sim/output.event_read_positions and
+        _prehp_log_rows are its spec): the rows of `lanes` (indices into the
+        compact batch `cb`, emission order, named by `names`), each lane's
+        in reverse event order.
+
+        Returns (a memoryview of the rows in the emitter's error-log buffer,
+        valid until the next call on this emitter; the number of lanes that
+        wrote a row)."""
+        k = len(lanes)
+        names_packed, name_off, _ = self._pack_names(names)
+        i64 = lambda a: np.ascontiguousarray(a, np.int64)
+        lanes = i64(lanes)
+        ev_flat = np.ascontiguousarray(cb.ev_flat, np.uint32)
+        prehp_flat = np.ascontiguousarray(cb.prehp_flat, np.uint8)
+        ev_off, n_events, prehp_off, prehp_len, chrom, pos = (
+            i64(a) for a in (cb.ev_off, cb.n_events, cb.prehp_off, cb.prehp_len, cb.chrom, cb.pos))
+        flat = np.ascontiguousarray(genome.flat, np.uint8)
+        g_offsets, g_lengths = i64(genome.offsets), i64(genome.lengths)
+        g_circ = np.ascontiguousarray(genome.circular, np.uint8)
+        if n_threads <= 0:
+            n_threads = min(4, os.cpu_count() or 1)
+        written = ctypes.c_int64(0)
+        logged = ctypes.c_int64(0)
+        for _ in range(2):  # a buffer below the rows' bound grows once
+            rc = self._log_lib.compose_prehp_log(
+                k, _ptr(lanes, ctypes.c_int64), len(n_events),
+                names_packed.ctypes.data_as(ctypes.c_char_p), _ptr(name_off, ctypes.c_int64),
+                _ptr(ev_flat, ctypes.c_uint32), ev_flat.size, _ptr(ev_off, ctypes.c_int64),
+                _ptr(n_events, ctypes.c_int64),
+                _ptr(prehp_flat, ctypes.c_uint8), prehp_flat.size,
+                _ptr(prehp_off, ctypes.c_int64), _ptr(prehp_len, ctypes.c_int64),
+                _ptr(chrom, ctypes.c_int64), _ptr(pos, ctypes.c_int64),
+                _ptr(flat, ctypes.c_uint8), flat.size, _ptr(g_offsets, ctypes.c_int64),
+                _ptr(g_lengths, ctypes.c_int64), _ptr(g_circ, ctypes.c_uint8), len(g_lengths),
+                _ptr(self._err_buf, ctypes.c_char), self._err_buf.size,
+                ctypes.byref(written), ctypes.byref(logged), n_threads,
+            )
+            if rc != 1:
+                break
+            self._err_buf = np.empty(int(written.value * 1.3) + 64, np.uint8)
+        if rc != 0:
+            raise RuntimeError(f"compose_prehp_log failed rc={rc}")
+        return memoryview(self._err_buf)[: written.value], logged.value
 
     @tracing.traced("emit.format")
     def emit(

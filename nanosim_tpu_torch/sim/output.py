@@ -331,32 +331,17 @@ class GenomeBatchWriter:
         return len(lanes)
 
     @tracing.traced("emit.hp_log")
-    def _hp_log_bytes(self, sim, cb, lanes, names) -> bytes:
+    def _hp_log_bytes(self, sim, cb, lanes, names):
         """Pre-hp ground-truth log of a device-materialized -hp batch: the
         device's events (suppressed ones carry zero length and are skipped),
         seq bases cut from the pass-1 middles, ref bases from the genome
         (wrapping on a circular chromosome); rows per read in reverse
-        position order, as mutate_read logs them."""
-        from .compact import decode_prehp_ascii
-
-        g = sim.genome_host
-        rows = []
-        for name, b in zip(names, lanes):
-            ne = int(cb.n_events[b])
-            if ne == 0:
-                continue
-            o = int(cb.ev_off[b])
-            w = cb.ev_flat[o : o + ne]
-            keys_v, rpos_v, lens_v = event_read_positions(
-                (w & np.uint32(0x1FFFF)).astype(np.int64),
-                (w >> np.uint32(30)).astype(np.int64),
-                ((w >> np.uint32(17)) & np.uint32(0x1FFF)).astype(np.int64),
-            )
-            mid = decode_prehp_ascii(cb, b).tobytes().decode()
-            lane_rows = _prehp_log_rows(name, keys_v, (w >> np.uint32(30)), lens_v, rpos_v, mid,
-                                        g, int(cb.chrom[b]), int(cb.pos[b]))
-            rows.extend(reversed(lane_rows))
-        return "".join(rows).encode()
+        position order, as mutate_read logs them.  Composed in C++
+        (NativeEmitter.prehp_log); event_read_positions and _prehp_log_rows
+        are its spec."""
+        rows, n_logged = self._emitter.prehp_log(cb, lanes, names, sim.genome_host)
+        tracing.count("emit.hp_log.lanes", n_logged)
+        return rows
 
 
 class CompactHandle:

@@ -31,6 +31,7 @@ from nanosim_tpu_torch.profiles import profile as tprofile
 from nanosim_tpu_torch.sim import genome_mode as tgm
 from nanosim_tpu_torch.sim import output as tout
 from nanosim_tpu_torch.sim import reconstruct
+from nanosim_tpu_torch.sim.compact import decode_prehp_ascii
 from nanosim_tpu_torch.sim import run as trun
 
 from test_torch_common import make_model
@@ -280,3 +281,156 @@ def test_native_hp_emitter_matches_numpy_spec(model):
     # suppressed (logged events are fewer than the walk's)
     assert any(r["l_new2"] != len(r["mid1"]) for r in spec)
     assert sum(len(r["log"][0]) for r in spec) < int(cb.n_events[lanes].sum())
+
+
+def _spec_hp_log(cb, lanes, names, g):
+    """The `-hp` log of a device-materialized batch as the Python spec
+    composes it (event_read_positions, _prehp_log_rows): rows, and the lanes
+    that wrote one."""
+    rows, logged = [], 0
+    for name, b in zip(names, lanes):
+        ne = int(cb.n_events[b])
+        if ne == 0:
+            continue
+        o = int(cb.ev_off[b])
+        w = cb.ev_flat[o : o + ne]
+        keys_v, rpos_v, lens_v = tout.event_read_positions(
+            (w & np.uint32(0x1FFFF)).astype(np.int64),
+            (w >> np.uint32(30)).astype(np.int64),
+            ((w >> np.uint32(17)) & np.uint32(0x1FFF)).astype(np.int64),
+        )
+        mid = decode_prehp_ascii(cb, b).tobytes().decode()
+        lane_rows = tout._prehp_log_rows(name, keys_v, w >> np.uint32(30), lens_v, rpos_v, mid,
+                                         g, int(cb.chrom[b]), int(cb.pos[b]))
+        rows.extend(reversed(lane_rows))
+        logged += bool(lane_rows)
+    return "".join(rows).encode(), logged
+
+
+def _word(pos2x, length, etype):
+    return pos2x | length << 17 | etype << 30
+
+
+def _random_events(rng, m):
+    """Ascending events over a middle of m reference bases: mismatches,
+    insertions (some followed by an overwriting one at the same key),
+    deletions, and suppressed (zero-length) ones."""
+    words, p = [], 0
+    while p < m:
+        if rng.random() >= 0.2:
+            p += 1
+            continue
+        t = int(rng.integers(0, 3))
+        ln = 0 if rng.random() < 0.15 else int(rng.integers(1, 4))
+        if t == 1:
+            words.append(_word(2 * p + 1, ln, 1))
+            if rng.random() < 0.3:
+                words.append(_word(2 * p + 1, int(rng.integers(1, 4)), 1))
+            p += 1
+        else:
+            ln = min(ln, m - p) if t == 2 else min(ln, 1)
+            words.append(_word(2 * p, ln, t))
+            p += max(ln, 1)
+    return words
+
+
+def _synthetic_hp_batch():
+    """A compact `-hp` batch built by hand over a genome of a circular, a
+    linear and a circular chromosome, with lanes that hit every rule of the
+    log: an event across the circular origin, one past it, overwritten
+    duplicate insertions, suppressed events, a lane with no events,
+    reverse-strand lanes, events at the last base of a middle and past a
+    middle cut short, a cut at the end of the genome, and an invalid lane
+    left out of the emission order."""
+    from nanosim_tpu_torch.sim.compact import CHUNK, CompactBatch
+
+    rng = np.random.default_rng(1717)
+    lens = [500, 800, 300]
+    g = TGenome(flat=rng.choice(np.frombuffer(b"ACGT", np.uint8), sum(lens)),
+                names=["c0", "c1", "c2"], lengths=np.array(lens, np.int64),
+                offsets=np.concatenate([[0], np.cumsum(lens)]).astype(np.int64),
+                circular=np.array([True, False, False]))
+    # (chrom, pos, middle_ref, rev, events, pre_len less than the events give)
+    lanes = [
+        (0, 490, 30, False, [_word(16, 5, 2), _word(20, 1, 0)], 0),  # wraps; then past 0
+        (1, 100, 40, False, [_word(5, 2, 1), _word(5, 3, 1), _word(5, 1, 1), _word(10, 0, 0),
+                             _word(14, 0, 2), _word(20, 2, 2), _word(31, 2, 1), _word(31, 1, 1)],
+         0),  # duplicate insertions, suppressed events
+        (1, 200, 25, False, [], 0),  # no events
+        (0, 10, 50, True, [_word(6, 1, 0), _word(13, 2, 1), _word(40, 3, 2)], 0),
+        (1, 300, 20, True, [_word(38, 1, 0)], 0),  # the middle's last base
+        (0, 400, 20, False, [_word(39, 3, 1)], 2),  # an insertion past a short middle
+        (2, 295, 10, False, [_word(6, 4, 2), _word(16, 1, 0)], 0),  # the genome's end
+    ]
+    for _ in range(41):
+        c = int(rng.integers(0, 3))
+        m = int(rng.integers(0, 300))
+        pos = int(rng.integers(max(lens[c] - m - 20, 0), lens[c]))
+        lanes.append((c, pos, m, bool(rng.integers(0, 2)), _random_events(rng, m), 0))
+    B = len(lanes)
+    valid = np.ones(B, bool)
+    valid[9] = False
+    n_events = np.array([len(ln[4]) for ln in lanes], np.int64)
+    ev_ch = (valid * 4 * n_events + CHUNK - 1) // CHUNK
+    ev_off = (np.cumsum(ev_ch) - ev_ch) * (CHUNK // 4)
+    ev_flat = np.zeros(int(ev_ch.sum()) * CHUNK // 4 + 1, np.uint32)
+    pre_len = np.zeros(B, np.int64)
+    for b, (_, _, m, _, words, short) in enumerate(lanes):
+        if valid[b]:
+            ev_flat[ev_off[b] : ev_off[b] + len(words)] = words
+        w = np.array(words, np.uint32)
+        _, _, eff = tout.event_read_positions((w & 0x1FFFF).astype(np.int64),
+                                              (w >> 30).astype(np.int64),
+                                              ((w >> 17) & 0x1FFF).astype(np.int64))
+        t = w >> 30
+        pre_len[b] = m - eff[t == 2].sum() + eff[t == 1].sum() - short
+    pch = (valid * ((pre_len + 3) // 4) + CHUNK - 1) // CHUNK
+    prehp_off = (np.cumsum(pch) - pch) * CHUNK
+    prehp_flat = np.zeros(int(pch.sum()) * CHUNK, np.uint8)
+    for b in np.nonzero(valid)[0]:
+        codes = rng.integers(0, 4, int(pre_len[b]) + 3)
+        packed = codes[0::4][: (pre_len[b] + 3) // 4]
+        for j in (1, 2, 3):
+            packed = packed | codes[j::4][: len(packed)] << (2 * j)
+        prehp_flat[prehp_off[b] : prehp_off[b] + len(packed)] = packed
+    cb = CompactBatch()
+    cb.valid, cb.n_events, cb.ev_off, cb.ev_flat = valid, n_events, ev_off, ev_flat
+    cb.chrom = np.array([ln[0] for ln in lanes], np.int64)
+    cb.pos = np.array([ln[1] for ln in lanes], np.int64)
+    cb.rev = np.array([ln[3] for ln in lanes], bool)
+    cb.prehp_flat, cb.prehp_off, cb.prehp_len = prehp_flat, prehp_off, pre_len
+    return cb, rng.permutation(np.nonzero(valid)[0]), g
+
+
+def _device_hp_batch(model):
+    """One batch of the circular `-hp` read-emitting program on the CPU, as
+    the run fetches it."""
+    _, ts = _sims(model, dna="circular", fastq=True)
+    slots = np.arange(BATCH, 2 * BATCH, dtype=np.int64)
+    cb = ts.dispatcher(SEED)(slots).fetch()
+    return cb, np.nonzero(cb.valid & ~cb.cap_over)[0][::-1], ts.genome_host
+
+
+@pytest.mark.parametrize("n_threads", [1, 4])
+@pytest.mark.parametrize("batch", ["synthetic", "device"])
+def test_native_hp_log_matches_python_spec(model, batch, n_threads):
+    """The C++ composer of a device-materialized batch's `-hp` log
+    (NativeEmitter.prehp_log) writes the Python spec's bytes, and counts the
+    lanes that wrote a row, whatever the thread count."""
+    cb, lanes, g = _synthetic_hp_batch() if batch == "synthetic" else _device_hp_batch(model)
+    names = [f"read{b}_{'R' if cb.rev[b] else 'F'}" for b in lanes]
+    want, want_logged = _spec_hp_log(cb, lanes, names, g)
+    emitter = native.NativeEmitter()
+    emitter._err_buf = np.empty(16, np.uint8)  # the buffer grows to the rows' bound
+    got, logged = emitter.prehp_log(cb, lanes, names, g, n_threads=n_threads)
+    assert bytes(got) == want
+    assert logged == want_logged > 10
+    # not vacuous: events were dropped from the log (suppressed or overwritten)
+    assert want.count(b"\n") < int(cb.n_events[lanes].sum())
+    if batch == "synthetic":
+        rows = want.decode().splitlines()
+        wrap = g.flat[[498, 499, 0, 1, 2]].tobytes().decode()
+        assert rows.index(f"read0_F\t8\tdel\t5\t{wrap}\t-----") == rows.index(
+            next(r for r in rows if r.startswith("read0_F\t10\tmis\t1\t" + chr(g.flat[0])))) + 1
+        assert [r.split("\t")[3] for r in rows if r.startswith("read1_F\t3\tins")] == ["1"]
+        assert not any(r.startswith("read2_") for r in rows)

@@ -149,6 +149,20 @@ def test_every_span_of_the_path_fires(runs, traffic):
 
 
 @pytest.mark.parametrize("traffic", list(TRAFFICS))
+def test_hp_log_counts_the_lanes_it_logged(runs, traffic):
+    """`emit.hp_log.lanes` counts the reads whose rows the `-hp` log's
+    composer wrote: in the traced `-hp` run, every read named in the error
+    profile; the other paths never reach the composer."""
+    on, _, counts = runs(traffic)[1:4]
+    if "kmer_bias" not in TRAFFICS[traffic][0]:
+        assert "emit.hp_log.lanes" not in counts
+        return
+    with open(on + "_aligned_error_profile", "rb") as f:
+        logged = {row.split(b"\t", 1)[0] for row in f.read().splitlines()[1:]}
+    assert counts["emit.hp_log.lanes"] == len(logged) > 0
+
+
+@pytest.mark.parametrize("traffic", list(TRAFFICS))
 def test_children_lie_inside_their_parents(runs, traffic):
     rows = sorted(runs(traffic)[2], key=lambda r: (r[1], r[3]))
     stack = []
