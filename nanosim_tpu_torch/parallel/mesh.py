@@ -20,12 +20,17 @@ The counts are exchanged two ways behind one interface (HostGroup):
   distributed run sizes; it reads the counts directly;
 * distributed (torch.distributed initialized, see multihost.init_distributed):
   the rank computes its own shard only and all-gathers its accept count.
+
+Each collective is the span `exchange` and counts `exchange.rounds`
+(tracing.py): the time a rank waits there for the slowest one.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 
 class HostGroup:
@@ -51,7 +56,9 @@ class HostGroup:
         import torch.distributed as dist
 
         parts = [torch.zeros(1, dtype=torch.int64) for _ in range(self.n_hosts)]
-        dist.all_gather(parts, torch.tensor([int(value)], dtype=torch.int64))
+        with tracing.span("exchange"):
+            dist.all_gather(parts, torch.tensor([int(value)], dtype=torch.int64))
+            tracing.count("exchange.rounds")
         return torch.cat(parts).numpy()
 
     def sum(self, values: np.ndarray) -> np.ndarray:
@@ -60,7 +67,9 @@ class HostGroup:
         import torch.distributed as dist
 
         t = torch.as_tensor(np.asarray(values, np.int64)).clone()
-        dist.all_reduce(t)
+        with tracing.span("exchange"):
+            dist.all_reduce(t)
+            tracing.count("exchange.rounds")
         return t.numpy()
 
 

@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..sim.output import report_progress
 from .mesh import HostGroup, shard_sim_batch_numbered
 
@@ -69,10 +70,15 @@ def _leave() -> None:
 
 def rank_device(device, host_id: int) -> torch.device:
     """The device of rank `host_id`: with a plain "cuda", card host_id
-    modulo the machine's cards; any other device as given."""
+    modulo the machine's cards; any other device as given.  A card is made
+    the calling thread's current one, so that every call that defaults to
+    the current card (synchronisation, events, memory statistics, the card
+    a kernel launcher launches from) is the rank's own."""
     dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
-        return torch.device("cuda", host_id % torch.cuda.device_count())
+    if dev.type == "cuda" and torch.cuda.is_available():
+        if dev.index is None:
+            dev = torch.device("cuda", host_id % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
     return dev
 
 
@@ -87,20 +93,27 @@ def _run_numbered(sim, group: HostGroup, n_reads: int, writer, step, lane_args=N
     n_reads, run the next batch of slots through `step` (with
     ``lane_args(slots)`` when given, then ``after(reduced)``) and write this
     rank's accepted lanes at their global numbers.  Returns the number of
-    reads written BY THIS RANK."""
+    reads written BY THIS RANK.
+
+    Each batch's step (its shard, the fetch of its count and the exchange)
+    and its write are the spans `dispatch` and `emit`, both carrying the
+    batch's first slot, as in `genome_mode.run_prefetched`."""
     written = 0
     prior = 0  # global accepted before the current batch
     slot_start = 0
     B = sim.batch
     while prior < n_reads:
         slots = np.arange(slot_start, slot_start + B, dtype=np.int64)
-        slot_start += B
-        res = step(slots, *(lane_args(slots) if lane_args is not None else ()))
+        with tracing.span("dispatch", slot_start):
+            res = step(slots, *(lane_args(slots) if lane_args is not None else ()))
+            tracing.count("batches.dispatched")
         out, offsets, total = res[:3]
         start = prior + int(offsets[group.host_id])
         lanes = np.nonzero(writer.accepted(sim, out))[0][: max(0, n_reads - start)]
         if len(lanes):
-            written += writer.write_batch(sim, out, start, n_reads, lanes=lanes, start=start)
+            with tracing.span("emit", slot_start):
+                written += writer.write_batch(sim, out, start, n_reads, lanes=lanes, start=start)
+        slot_start += B
         if after is not None:
             after(res[3])
         prev = prior

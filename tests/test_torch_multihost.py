@@ -10,9 +10,10 @@ unaligned passes merge to their single-host outputs.  Then every shard of
 genome (linear and circular), chimeric genome, the unaligned pass,
 transcriptome and chimeric metagenome runs against the JAX package's shard
 for the same host count, seed and batch (JAX on its virtual CPU devices,
-one device a host), and two ranks as two processes joined by a gloo process
-group against the emulated ranks.  Small fixtures: one 30 kb chromosome,
-batches of 64.
+one device a host), and two and four ranks as as many processes joined by a
+gloo process group against the emulated ranks (the four merged against the
+single-host run), and a rank's card made current before its first launch.
+Small fixtures: one 30 kb chromosome, batches of 64.
 """
 
 import os
@@ -472,7 +473,7 @@ def test_metagenome_shards_equal_jax(fx, jax_mesh_of, monkeypatch, recon):
         assert read_file(a + path) == read_file(b + path)
 
 
-# --- two ranks as two processes ---------------------------------------------
+# --- ranks as processes ------------------------------------------------------
 
 RANK_SCRIPT = """
 import sys
@@ -480,14 +481,15 @@ import torch
 torch.set_num_threads(1)
 from nanosim_tpu_torch.parallel import init_distributed
 mode, out, host_id, coordinator = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
-init_distributed(coordinator, 2, host_id, timeout_s=120)
+n_hosts = int(sys.argv[5])
+init_distributed(coordinator, n_hosts, host_id, timeout_s=120)
 if mode == "genome":
     from nanosim_tpu_torch.sim.run import simulate_genome
-    simulate_genome(sys.argv[5], sys.argv[6], out, 200, fastq=True, seed=11, batch=64,
-                    n_hosts=2, host_id=host_id, coordinator=coordinator, device="cpu")
+    simulate_genome(sys.argv[6], sys.argv[7], out, 200, fastq=True, seed=11, batch=64,
+                    n_hosts=n_hosts, host_id=host_id, coordinator=coordinator, device="cpu")
 else:
     from nanosim_tpu_torch.sim.run_metagenome import simulate_metagenome
-    simulate_metagenome(sys.argv[5], sys.argv[6], sys.argv[7], sys.argv[8], out, seed=3,
+    simulate_metagenome(sys.argv[6], sys.argv[7], sys.argv[8], sys.argv[9], out, seed=3,
                         batch=64, chimeric=True, n_hosts=2, host_id=host_id,
                         coordinator=coordinator, device="cpu")
 """
@@ -501,14 +503,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _two_ranks(mode: str, out: str, args) -> None:
-    """Run the two ranks as two processes; kill both and fail if either has
+def _gloo_ranks(mode: str, out: str, args, n_hosts: int = 2) -> None:
+    """Run the ranks as n_hosts processes; kill them all and fail if any has
     not exited after JOIN_TIMEOUT_S."""
     coordinator = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, "-c", RANK_SCRIPT, mode, out, str(h), coordinator,
-                               *args], cwd=REPO, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for h in range(2)]
+                               str(n_hosts), *args], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for h in range(n_hosts)]
     logs = []
     try:
         for p in procs:
@@ -522,19 +524,34 @@ def _two_ranks(mode: str, out: str, args) -> None:
         assert p.returncode == 0, log[-3000:]
 
 
-def test_two_gloo_ranks_equal_the_emulated_ranks(fx, four_hosts):
-    """simulate_genome(n_hosts=2, coordinator=...) in two processes: the
-    shards equal those of the same run with the ranks emulated."""
+@pytest.mark.parametrize("n_hosts", [2, 4])
+def test_two_gloo_ranks_equal_the_emulated_ranks(fx, four_hosts, n_hosts):
+    """simulate_genome(n_hosts=2 or 4, coordinator=...) in as many processes:
+    the shards equal those of the same run with the ranks emulated, and the
+    four ranks' shards, merged, the single-host run's files record for
+    record."""
     d = fx["d"]
-    b = os.path.join(d, "gloo")
-    _two_ranks("genome", b, [fx["ref"], fx["prefix"]])
-    e = os.path.join(d, "emulated2")
-    for h in range(2):
-        _genome(e, 200, ref=fx["ref"], prefix=fx["prefix"], fastq=True, n_hosts=2, host_id=h)
+    b = os.path.join(d, f"gloo{n_hosts}")
+    _gloo_ranks("genome", b, [fx["ref"], fx["prefix"]], n_hosts)
+    if n_hosts == 4:
+        flat, emulated = four_hosts
+        e = emulated[0]
+    else:
+        e = os.path.join(d, "emulated2")
+        for h in range(2):
+            _genome(e, 200, ref=fx["ref"], prefix=fx["prefix"], fastq=True, n_hosts=2, host_id=h)
     total = 0
-    for h in range(2):
+    for h in range(n_hosts):
         total += _same_shards(e, b, GENOME_SUFFIXES, h, True)
     assert total > 100
+    if n_hosts == 4:
+        for kind in ("_aligned_reads", "_unaligned_reads"):
+            merged = f"{b}_merged{kind}.fastq"
+            parallel.merge_host_shards(merged, [f"{b}{kind}_h{h}.fastq" for h in range(4)])
+            assert _sorted_records(flat + kind + ".fastq") == _sorted_records(merged)
+        merged = b + "_merged_error_profile"
+        parallel.merge_host_shards(merged, [f"{b}_aligned_error_profile_h{h}" for h in range(4)])
+        assert _err_rows(flat + "_aligned_error_profile") == _err_rows(merged)
 
 
 def test_two_gloo_ranks_metagenome_equal_the_emulated_ranks(fx):
@@ -545,7 +562,7 @@ def test_two_gloo_ranks_metagenome_equal_the_emulated_ranks(fx):
 
     m = fx["meta"]
     b = os.path.join(m.d, "gloo_meta")
-    _two_ranks("metagenome", b, [m.glist, m.abun, m.dl, m.prefix])
+    _gloo_ranks("metagenome", b, [m.glist, m.abun, m.dl, m.prefix])
     e = os.path.join(m.d, "emulated_meta")
     for h in range(2):
         simulate_metagenome(m.glist, m.abun, m.dl, m.prefix, e, seed=3, batch=64, chimeric=True,
@@ -620,6 +637,39 @@ def test_init_distributed_is_a_no_op_for_one_process():
     parallel.init_distributed("127.0.0.1:1", 1, 0)
     parallel.init_distributed(None, None, None)
     assert not dist.is_initialized()
+
+
+def test_a_rank_makes_its_card_current_before_its_first_launch(fx, monkeypatch):
+    """simulate_genome's multi-rank branch with the card calls monkeypatched
+    (four cards, card 0 current): rank h builds its simulator, whose
+    construction is its first device work, on card h with card h current,
+    so that the kernels' launchers launch on the card of their stream."""
+    import torch
+
+    from nanosim_tpu_torch.sim import run as trun
+
+    current = [0]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: current.__setitem__(0, torch.device(d).index))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0])
+
+    class Built(Exception):
+        pass
+
+    seen = []
+
+    def simulator(genome, prof, *, device, **kwargs):
+        seen.append((torch.device(device), torch.cuda.current_device()))
+        raise Built
+
+    monkeypatch.setattr(trun, "GenomeSimulator", simulator)
+    for h in (2, 1, 3, 0):
+        with pytest.raises(Built):
+            trun.simulate_genome(fx["ref"], fx["prefix"], os.path.join(fx["d"], "cards"), 20,
+                                 n_hosts=4, host_id=h, device="cuda")
+        assert seen[-1] == (torch.device("cuda", h), h)
 
 
 def test_rank_device():

@@ -13,9 +13,18 @@ profiler and once under `torch.profiler` (CPU activity):
   slot, `batches.fetched` counts the batches consumed, self times are not
   negative and every row lies inside the job;
 * the files are the same bytes either way.
+
+A multi-rank run (two gloo ranks, one process each, each under its own
+profiler) records on every rank the exchange of the accept counts as spans
+`exchange` inside the batch's `dispatch`, one `exchange.rounds` a batch
+dispatched, and the rank's writes as `emit`.
 """
 
+import json
 import os
+import socket
+import subprocess
+import sys
 import time
 
 import pytest
@@ -192,3 +201,53 @@ def test_batches_share_their_first_slot(runs, traffic):
 def test_rows_lie_inside_the_job(runs, traffic):
     rows, _, _, t0, t1 = runs(traffic)[2:7]
     assert rows and all(t0 <= s <= e <= t1 for _, s, e, _, _ in rows)
+
+
+RANK_SCRIPT = """
+import json, sys
+import torch
+torch.set_num_threads(1)
+from torch.profiler import ProfilerActivity, profile
+from nanosim_tpu_torch import tracing
+from nanosim_tpu_torch.sim.run import simulate_genome
+ref, prefix, out, host_id, coordinator = sys.argv[1:6]
+with profile(activities=[ProfilerActivity.CPU]):
+    simulate_genome(ref, prefix, out, 200, seed=3, batch=64, fastq=True, n_hosts=2,
+                    host_id=int(host_id), coordinator=coordinator, device="cpu")
+with open(out + f"_trace_h{host_id}.json", "w") as f:
+    json.dump({"counts": tracing.RECORDER.counts,
+               "rows": [r[:4] for r in tracing.RECORDER.rows]}, f)
+"""
+
+
+def test_multi_rank_run_records_the_exchange(inputs):
+    d, prefix, refs = inputs
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    out = os.path.join(d, "ranks")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+               OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", RANK_SCRIPT, refs["linear"], prefix, out,
+                               str(h), coordinator], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for h in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    for h in range(2):
+        with open(out + f"_trace_h{h}.json") as f:
+            got = json.load(f)
+        counts, rows = got["counts"], got["rows"]
+        assert counts["exchange.rounds"] == counts["batches.dispatched"] > 0
+        exchanges = [r for r in rows if r[0] == "exchange"]
+        dispatches = [r for r in rows if r[0] == "dispatch" and r[3] == 0]
+        assert len(exchanges) == counts["exchange.rounds"] == len(dispatches)
+        for (_, s, e, depth), (_, ds, de, _) in zip(exchanges, dispatches):
+            assert ds <= s <= e <= de and depth == 1
+        assert any(r[0] == "emit" and r[3] == 0 for r in rows)
