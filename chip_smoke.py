@@ -5,7 +5,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. the card: `nvidia-smi` name and power limit, torch's device name and count;
 2. builds: csrc/walk.cu, csrc/walk_ablate.cu, csrc/gather.cu,
-   csrc/assemble.cu and csrc/gather_window.cu with nvcc (sm_90a, one nvcc per source; the ptxas reports
+   csrc/assemble.cu, csrc/gather_window.cu and csrc/draw.cu with nvcc (sm_90a, one nvcc per source; the ptxas reports
    are printed, a reported register spill fails the run) and
    native/fastwriter.cpp with g++, all started together;
 3. kernels from the bench configuration's tables (mean read 8,000, sd
@@ -34,6 +34,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    outlast the host's calls), all three timed over 100 calls with events; the
    trace of K3's and of K5's calls must show no device op but the kernel's
    (each call one launch).
+   The draw kernels (csrc/draw.cu, ops/draw_cuda.py) against ops/rng.py's
+   int64 version on the same CUDA tensors, bit for bit: the read-emitting
+   program's per-slot quality draws at B=2,048, n=19,456 (uniforms, the two
+   16-bit uniforms, the clamped uniform at int32 positions), a ragged
+   [37 x 3,001], and the meta-only programs' per-lane draws at B=512 (a
+   site fold, a uniform, a float64 uniform); each timed with events beside
+   the int64 version and its bound (60 integer operations a hash, or the
+   bytes read and written), with its self device time (a trace that shows
+   one launch a call and no other op), the host us per call, and the int64
+   version's device ops per call.
    The same for the chimeric path's shapes (bench configuration: batch 512,
    segment mean 1.3, s_max 8): the walks on the inputs the first meta-only
    batch's packed lanes give them (K1 at B = k_cap = 1,024, K2 at
@@ -303,8 +313,8 @@ def phase_card():
 
 def phase_build():
     from nanosim_tpu_torch.io import native
-    from nanosim_tpu_torch.ops import (assemble_cuda, cuda_build, gather_cuda, gather_window,
-                                       walk_ablate, walk_cuda)
+    from nanosim_tpu_torch.ops import (assemble_cuda, cuda_build, draw_cuda, gather_cuda,
+                                       gather_window, walk_ablate, walk_cuda)
 
     errors = []
 
@@ -318,7 +328,7 @@ def phase_build():
     threads = [threading.Thread(target=run, args=(fn,))
                for fn in (walk_cuda.LIBRARY.load, walk_ablate.LIBRARY.load,
                           gather_cuda.LIBRARY.load, assemble_cuda.LIBRARY.load,
-                          gather_window.LIBRARY.load, native.get_lib)]
+                          gather_window.LIBRARY.load, draw_cuda.LIBRARY.load, native.get_lib)]
     for t in threads:
         t.start()
     for t in threads:
@@ -329,7 +339,7 @@ def phase_build():
         fail("native/fastwriter.cpp did not build")
     print(f"builds done in {time.time() - t0:.1f}s", flush=True)
     for lib in (walk_cuda.LIBRARY, walk_ablate.LIBRARY, gather_cuda.LIBRARY,
-                assemble_cuda.LIBRARY, gather_window.LIBRARY):
+                assemble_cuda.LIBRARY, gather_window.LIBRARY, draw_cuda.LIBRARY):
         print(f"nvcc -Xptxas -v ({os.path.basename(lib.src)}):\n"
               + (lib.build_log.strip() or "(library was already built)"), flush=True)
         spills = [ln for ln in lib.build_log.splitlines()
@@ -343,6 +353,10 @@ def phase_build():
         tag = name[name.find("fixed_walk"):][:52]
         top = ", ".join(f"{k} {v}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:9])
         print(f"sass {tag}: {top}", flush=True)
+    # the draw kernels' instances: the rotations should be funnel shifts (SHF)
+    for name, ops in sorted(cuda_build.sass_summary(draw_cuda.LIBRARY.path).items()):
+        top = ", ".join(f"{k} {v}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])[:9])
+        print(f"sass {name[:72]}: {top}", flush=True)
 
 
 def make_fixture(d: str, genome_mb: float, mean_len: float, sd_len: float, n_kde: int):
@@ -587,6 +601,109 @@ def _ragged_gather_inputs(B: int, PB: int, L: int, seed: int):
     src = rs.integers(-8, 64, (B, 1)) + np.arange(L)[None, :] + drift
     src[:, :3] = [-5, 4 * PB + 7, 4 * PB - 1]
     return (torch.from_numpy(packed).cuda(), torch.from_numpy(src.astype(np.int32)).cuda())
+
+
+# integer operations a Threefry-2x32 hash takes at the least: its 20 rounds'
+# add, rotate and xor (the walks' bounds count 72, the 5 key injections too;
+# the draw kernel runs faster than that, nvcc folding the injections' adds
+# into three-input adds and issuing adds as IMAD on the float pipe)
+THREEFRY_INT_OPS = 60
+
+
+def _draw_case(label: str, fn, hashes: int, n_bytes: int):
+    """One draw against ops/rng.py's int64 version on the same CUDA tensors
+    (the routing switched inside the call), bit for bit, then timed: CUDA
+    events over GATHER_TIMED_LAUNCHES calls of each, the kernel's self
+    device time from a trace that must show one launch a call and no other
+    op, the host's us per call, and the int64 version's device ops a call."""
+    import torch
+
+    from nanosim_tpu_torch.ops import draw_cuda, rng
+    from nanosim_tpu_torch.ops.cuda_build import time_ms
+
+    def plain():
+        on_card = rng._on_card
+        rng._on_card = lambda t: False
+        try:
+            return fn()
+        finally:
+            rng._on_card = on_card
+
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{label}: kernel output {tuple(g.shape)} {g.dtype} != int64 version's "
+                 f"{tuple(w.shape)} {w.dtype}")
+        if g.dtype in (torch.float32, torch.float64):
+            g, w = (t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+                    for t in (g, w))
+        if not torch.equal(g, w):
+            fail(f"{label}: the draw kernel differs from the int64 version")
+    del got, want
+    before = draw_cuda.launches
+    fn()
+    if draw_cuda.launches != before + 1:
+        fail(f"{label}: {draw_cuda.launches - before} draw launches in one call")
+    bound, bound_by = _bound_ms(n_bytes, THREEFRY_INT_OPS * hashes, 0)
+    others = {}
+    times = {"ms": time_ms(fn, GATHER_TIMED_LAUNCHES), "plain_ms": time_ms(plain, 10)}
+    times["device_ms"], seen = _profiled_device_ms(
+        fn, GATHER_TIMED_LAUNCHES, lambda key: "draw_kernel" in key or "fold_kernel" in key,
+        others, exact=True)
+    if others or seen > GATHER_TIMED_LAUNCHES:
+        fail(f"{label}: {seen} draw launches and other device ops {others} in "
+             f"{GATHER_TIMED_LAUNCHES} calls")
+    times["host_us_per_call"] = _host_us_per_call(fn, GATHER_TIMED_LAUNCHES)
+    _, plain_ops = _profiled_device_ms(plain, 1)
+    times["plain_device_ops_per_call"] = plain_ops
+    print(f"kernel {label}: exact; {times['ms']:.4f} ms (int64 version {times['plain_ms']:.4f} "
+          f"ms in {plain_ops} device ops; bound {bound:.4f} ms by {bound_by}, "
+          f"{times['ms'] / bound:.1f}x the bound); device {_fmt_ms(times['device_ms'])} "
+          f"(profiler); host {times['host_us_per_call']:.2f} us per call", flush=True)
+    return {"name": label.split(" ")[0], "route": "cuda",
+            "source": "nanosim_tpu_torch/csrc/draw.cu", "replaces": "none (ops/rng.py int64 ops)",
+            "label": label, "hashes": hashes, **times, "bound_ms": bound, "bound_by": bound_by,
+            "role": "", "path": ""}
+
+
+def phase_draw_kernels():
+    """The draw kernels against ops/rng.py's int64 version at the batch
+    programs' shapes: the read-emitting program's [2,048 x 19,456] draws,
+    a ragged [37 x 3,001], and the meta-only programs' [512]-lane draws."""
+    import torch
+
+    from nanosim_tpu_torch.ops import rng
+
+    dev = torch.device("cuda")
+    base = rng.base_key(2**63 + SEED, rng.STREAM_ALIGNED, device=dev)
+    rows = []
+    for B, n in ((2048, 19456), (37, 3001)):
+        slots = torch.arange(2**32 - B // 2, 2**32 - B // 2 + B, dtype=torch.int64, device=dev)
+        sk = rng.slot_keys(base, slots)
+        pos = (torch.arange(n, device=dev, dtype=torch.int32)[None, :]
+               + torch.arange(B, device=dev, dtype=torch.int32)[:, None] % 97 - 40)
+        draws = B * n
+        rows.append(_draw_case(f"uniform_per_slot B={B} n={n}",
+                               lambda: rng.uniform_per_slot(sk, rng.SITE_QUAL, (n,)),
+                               draws + B, 16 * B + 4 * draws))
+        rows.append(_draw_case(f"uniform2_per_slot B={B} n={n}",
+                               lambda: rng.uniform2_per_slot(sk, rng.SITE_MIS_BASE, (n,)),
+                               draws + B, 16 * B + 8 * draws))
+        rows.append(_draw_case(f"uniform_at B={B} n={n}",
+                               lambda: rng.uniform_at(sk, rng.SITE_HEAD_TAIL, pos, n - 8),
+                               draws + B, 16 * B + 8 * draws))
+        del sk, pos
+        torch.cuda.empty_cache()
+    B = CHI_BATCH
+    sk = rng.slot_keys(base, torch.arange(B, dtype=torch.int64, device=dev))
+    rows.append(_draw_case(f"fold_in B={B}", lambda: rng.site_keys(sk, rng.SITE_POSITION),
+                           B, 32 * B))
+    rows.append(_draw_case(f"uniform_per_slot B={B} n=1",
+                           lambda: rng.uniform_per_slot(sk, rng.SITE_STRAND), 2 * B, 20 * B))
+    rows.append(_draw_case(f"uniform_f64 B={B} n=1", lambda: rng.uniform_f64(sk), B, 24 * B))
+    return rows
 
 
 def phase_gather(prefix: str, circ_ref: str):
@@ -3200,7 +3317,8 @@ def main():
         fixtures.make_reference_fasta(circ_ref, [CIRC_LEN], seed=13, with_iupac=True)
         print(f"fixture ({GENOME_MB} Mb genome, {CIRC_LEN} bp circular chromosome) in "
               f"{time.time() - t0:.1f}s", flush=True)
-        cases = (phase_kernels(prefix, ref) + phase_gather(prefix, circ_ref)
+        cases = (phase_kernels(prefix, ref) + phase_draw_kernels()
+                 + phase_gather(prefix, circ_ref)
                  + phase_hp_kernels(prefix, circ_ref)
                  + phase_chimeric_kernels(prefix, ref, circ_ref))
         if args.kernels:

@@ -21,15 +21,25 @@ Two details of ``jax.random`` that the mapping depends on:
 No torch.Generator and no global state: a draw is a pure function of
 (seed, stream, slot, site, position).
 
+Every public draw takes its keys' device as the only switch: on the card it
+is one launch of csrc/draw.cu (ops/draw_cuda.py), with the dtype and bits of
+the int64 version here, which runs for CPU tensors and is the kernels' spec.
+Under a profiler, ``rng.plain_hashes_on_card`` counts the int64 hashes that
+run on CUDA tensors all the same (none should) and ``rng.draw_launches`` the
+kernel's launches.
+
 Site ids are part of the on-disk reproducibility contract — append, never
 renumber.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from . import xla_math
+from .. import tracing
+from . import draw_cuda, xla_math
 
 # --- Site enumeration (append-only) ---------------------------------------
 SITE_REF_LENGTH = 0  # aligned-region / total length KDE draw
@@ -73,9 +83,16 @@ _ROT0 = (13, 15, 26, 6)
 _ROT1 = (17, 29, 16, 24)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether a draw on `t` runs as the CUDA kernel: by its device alone."""
+    return t.is_cuda
+
+
 def _threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 (20 rounds), elementwise over broadcastable int64
     tensors holding uint32 values; returns (y0, y1) int64 in [0, 2**32)."""
+    if k0.is_cuda:
+        tracing.count("rng.plain_hashes_on_card")
     k2 = k0 ^ k1 ^ 0x1BD11BDA
     x0 = (x0 + k0) & MASK32
     x1 = (x1 + k1) & MASK32
@@ -98,6 +115,8 @@ def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
 
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """[..., 2] keys, int or broadcastable int64 tensor -> [..., 2] keys."""
+    if _on_card(keys):
+        return draw_cuda.fold_in(keys, data)
     if torch.is_tensor(data):
         data = data & MASK32
         zero = torch.zeros_like(data)
@@ -124,6 +143,8 @@ def slot_keys(base: torch.Tensor, slot_ids: torch.Tensor) -> torch.Tensor:
 def part_slot_keys(slot_keys_arr: torch.Tensor, part_base: int, part_idx) -> torch.Tensor:
     """Per-(slot, part) keys for chimeric segments/gaps; part_idx is an int
     or a per-lane int64 tensor."""
+    if _on_card(slot_keys_arr) and torch.is_tensor(part_idx):  # the sum inside the launch
+        return draw_cuda.fold_in(slot_keys_arr, part_idx, add=part_base)
     return fold_in(slot_keys_arr, part_base + part_idx)
 
 
@@ -133,6 +154,8 @@ def site_keys(slot_keys_arr: torch.Tensor, site: int) -> torch.Tensor:
 
 def bits_at(keys: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Bits of draw `pos` for each key: keys [B, 2], pos [B, ...] int64."""
+    if _on_card(keys):
+        return draw_cuda.bits_at(keys, pos)
     extra = (1,) * (pos.dim() - 1)
     B = keys.shape[0]
     k0 = keys[:, 0].reshape(B, *extra)
@@ -151,12 +174,16 @@ def _flat_positions(keys: torch.Tensor, shape) -> torch.Tensor:
 
 def bits_per_slot(slot_keys_arr: torch.Tensor, site: int, shape=()) -> torch.Tensor:
     """Per-slot uint32 draws (in int64) of `shape` per lane -> [B, *shape]."""
+    if _on_card(slot_keys_arr):
+        return draw_cuda.bits_per_slot(slot_keys_arr, site, shape)
     ks = site_keys(slot_keys_arr, site)
     return bits_at(ks, _flat_positions(ks, tuple(shape)))
 
 
 def uniform_per_slot(slot_keys_arr: torch.Tensor, site: int, shape=()) -> torch.Tensor:
     """Per-slot uniform(0,1) f32 draws of `shape` per lane -> [B, *shape]."""
+    if _on_card(slot_keys_arr):
+        return draw_cuda.uniform_per_slot(slot_keys_arr, site, shape)
     return _bits_to_uniform(bits_per_slot(slot_keys_arr, site, shape))
 
 
@@ -182,6 +209,8 @@ def normal_per_slot(slot_keys_arr: torch.Tensor, site: int, shape=()) -> torch.T
 def uniform_at(slot_keys_arr: torch.Tensor, site: int, pos: torch.Tensor, n: int) -> torch.Tensor:
     """uniform_per_slot(sk, site, (n,))[b, pos[b, ...]] without materializing
     the pool; out-of-range pos are clamped."""
+    if _on_card(slot_keys_arr):
+        return draw_cuda.uniform_at(slot_keys_arr, site, pos, n)
     ks = site_keys(slot_keys_arr, site)
     return _bits_to_uniform(bits_at(ks, pos.clamp(0, n - 1).to(torch.int64)))
 
@@ -189,6 +218,8 @@ def uniform_at(slot_keys_arr: torch.Tensor, site: int, pos: torch.Tensor, n: int
 def uniform2_per_slot(slot_keys_arr: torch.Tensor, site: int, shape=()):
     """Two independent uniform(0,1) fields from ONE u32 draw per position
     (16-bit resolution each)."""
+    if _on_card(slot_keys_arr):
+        return draw_cuda.uniform2_per_slot(slot_keys_arr, site, shape)
     bits = bits_per_slot(slot_keys_arr, site, shape)
     scale = 1.0 / 65536.0
     lo = (bits & 0xFFFF).to(torch.float32) * scale
@@ -203,6 +234,8 @@ def uniform_f64(keys: torch.Tensor, shape=()) -> torch.Tensor:
     The 64 random bits of draw j are (y0 << 32) | y1 of counter (0, j);
     their top 52 bits become the mantissa.  (y0 << 20) | (y1 >> 12) is that
     shift done without leaving int64's positive range."""
+    if _on_card(keys):
+        return draw_cuda.uniform_f64(keys, shape)
     if shape:
         pos = _flat_positions(keys, tuple(shape))
         extra = (1,) * len(shape)
@@ -213,3 +246,16 @@ def uniform_f64(keys: torch.Tensor, shape=()) -> torch.Tensor:
     y0, y1 = _threefry2x32(k0, k1, torch.zeros_like(pos), pos)
     mant = (y0 << 20) | (y1 >> 12)
     return (mant | 0x3FF0000000000000).view(torch.float64) - 1.0
+
+
+def uniform(keys: torch.Tensor, shape=()) -> torch.Tensor:
+    """jax.random.uniform(k, shape) (float32) for each key: keys [..., 2] ->
+    [..., *shape]; draw j is threefry(k, (0, j)) with bits y0 ^ y1."""
+    if _on_card(keys):
+        return draw_cuda.uniform(keys, shape)
+    shape = tuple(shape)
+    lanes = (*keys.shape[:-1], *(1,) * len(shape))
+    pos = torch.arange(math.prod(shape), dtype=torch.int64, device=keys.device).reshape(shape)
+    y0, y1 = _threefry2x32(keys[..., 0].reshape(lanes), keys[..., 1].reshape(lanes),
+                           torch.zeros_like(pos), pos)
+    return _bits_to_uniform(y0 ^ y1)

@@ -67,9 +67,7 @@ def step_uniforms(walk_keys: torch.Tensor, steps: torch.Tensor, n: int) -> torch
     steps [T] int64 -> [T, B, n] f32."""
     T, B = steps.shape[0], walk_keys.shape[0]
     f = rng.fold_in(walk_keys[None].expand(T, B, 2), steps[:, None].expand(T, B))
-    j = torch.arange(n, dtype=torch.int64, device=walk_keys.device)
-    y0, y1 = rng._threefry2x32(f[..., 0, None], f[..., 1, None], torch.zeros_like(j), j)
-    return rng._bits_to_uniform(y0 ^ y1)
+    return rng.uniform(f, (n,))
 
 
 def _word(pos2x, length, etype) -> torch.Tensor:

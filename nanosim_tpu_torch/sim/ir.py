@@ -129,9 +129,7 @@ def ir_walk_and_extract(sk, trx, middle_ref, trx_len, t: IRTables, genome: extra
     # step f's uniform is uniform(fold_in(ir_key, f)), the first draw of that
     # key; it does not depend on the chain, so every step's is drawn at once
     k = rng.fold_in(ir_keys[:, None, :], f_ids.long()[None, :])  # [B, F, 2]
-    zero = torch.zeros_like(k[..., 0])
-    y0, y1 = rng._threefry2x32(k[..., 0], k[..., 1], zero, zero)
-    u_f = rng._bits_to_uniform(y0 ^ y1)  # [B, F]
+    u_f = rng.uniform(k)  # [B, F]
     feat_ids = base_off[:, None] + torch.minimum(f_ids[None, :], (nf - 1)[:, None])
     f_act = f_ids[None, :] < nf[:, None]
     f_int = t.is_intron[feat_ids.long()] & f_act

@@ -11,7 +11,8 @@ profiler and once under `torch.profiler` (CPU activity):
 * under the profiler every span of the path fires, each nested span lies
   inside its parent, one batch's dispatch, fetch and emit carry its first
   slot, `batches.fetched` counts the batches consumed, self times are not
-  negative and every row lies inside the job;
+  negative and every row lies inside the job, and neither draw counter
+  (`rng.draw_launches`, `rng.plain_hashes_on_card`) appears on the CPU;
 * the files are the same bytes either way.
 
 A multi-rank run (two gloo ranks, one process each, each under its own
@@ -169,6 +170,16 @@ def test_hp_log_counts_the_lanes_it_logged(runs, traffic):
     with open(on + "_aligned_error_profile", "rb") as f:
         logged = {row.split(b"\t", 1)[0] for row in f.read().splitlines()[1:]}
     assert counts["emit.hp_log.lanes"] == len(logged) > 0
+
+
+@pytest.mark.parametrize("traffic", list(TRAFFICS))
+def test_draws_count_nothing_on_the_cpu(runs, traffic):
+    """On CPU tensors every draw is ops/rng.py's int64 version: neither
+    draw counter appears, `rng.draw_launches` (launches of csrc/draw.cu) nor
+    `rng.plain_hashes_on_card` (int64 hashes on CUDA tensors)."""
+    counts = runs(traffic)[3]
+    assert "rng.draw_launches" not in counts
+    assert "rng.plain_hashes_on_card" not in counts
 
 
 @pytest.mark.parametrize("traffic", list(TRAFFICS))
