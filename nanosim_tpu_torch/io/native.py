@@ -30,6 +30,9 @@ _lib = None
 _log_lib = None
 _tried = False
 
+# threads of the C++ replays and emitters; the bytes do not depend on it
+EMIT_THREADS = min(4, os.cpu_count() or 1)
+
 _P = ctypes.POINTER
 _I64P = _P(ctypes.c_int64)
 # compose_prehp_log's parameters, in order (csrc/prehp_log.cpp)
@@ -180,7 +183,7 @@ class WalkReplayer:
             _ptr(np.ascontiguousarray(ev_off, np.int64), ctypes.c_int64),
             ctypes.c_int64(self.e_guard),
             _ptr(ok, ctypes.c_uint8),
-            ctypes.c_int32(min(4, os.cpu_count() or 1)),
+            ctypes.c_int32(EMIT_THREADS),
         )
         return ok.astype(bool)
 
@@ -234,7 +237,7 @@ class UnalignedWalkReplayer:
             _ptr(np.ascontiguousarray(ev_off, np.int64), ctypes.c_int64),
             ctypes.c_int64(self.e_guard),
             _ptr(ok, ctypes.c_uint8),
-            ctypes.c_int32(min(4, os.cpu_count() or 1)),
+            ctypes.c_int32(EMIT_THREADS),
         )
         return ok.astype(bool)
 
@@ -257,7 +260,7 @@ class NativeEmitter:
     def available(self) -> bool:
         return self.lib is not None
 
-    def prehp_log(self, cb, lanes, names: list, genome, n_threads: int = 0):
+    def prehp_log(self, cb, lanes, names: list, genome):
         """The pre-resize ground-truth log of a device-materialized `-hp`
         batch (csrc/prehp_log.cpp; sim/output.event_read_positions and
         _prehp_log_rows are its spec): the rows of `lanes` (indices into the
@@ -278,8 +281,6 @@ class NativeEmitter:
         flat = np.ascontiguousarray(genome.flat, np.uint8)
         g_offsets, g_lengths = i64(genome.offsets), i64(genome.lengths)
         g_circ = np.ascontiguousarray(genome.circular, np.uint8)
-        if n_threads <= 0:
-            n_threads = min(4, os.cpu_count() or 1)
         written = ctypes.c_int64(0)
         logged = ctypes.c_int64(0)
         for _ in range(2):  # a buffer below the rows' bound grows once
@@ -294,7 +295,7 @@ class NativeEmitter:
                 _ptr(flat, ctypes.c_uint8), flat.size, _ptr(g_offsets, ctypes.c_int64),
                 _ptr(g_lengths, ctypes.c_int64), _ptr(g_circ, ctypes.c_uint8), len(g_lengths),
                 _ptr(self._err_buf, ctypes.c_char), self._err_buf.size,
-                ctypes.byref(written), ctypes.byref(logged), n_threads,
+                ctypes.byref(written), ctypes.byref(logged), EMIT_THREADS,
             )
             if rc != 1:
                 break
@@ -419,7 +420,6 @@ class NativeEmitter:
         genome_flat: np.ndarray,
         fastq: bool,
         write_errors: bool,
-        n_threads: int = 0,
     ):
         """Format a compacted batch (2-bit flat reads, FASTQ qualities, packed
         u32 events for the error log).
@@ -461,8 +461,6 @@ class NativeEmitter:
             self._fastx_buf = np.empty(int(ubf[k] * 1.3) + 64, np.uint8)
         if self._err_buf.size < ube[k] + 64:
             self._err_buf = np.empty(int(ube[k] * 1.3) + 64, np.uint8)
-        if n_threads <= 0:
-            n_threads = min(4, os.cpu_count() or 1)
 
         fw = ctypes.c_int64(0)
         ew = ctypes.c_int64(0)
@@ -478,7 +476,7 @@ class NativeEmitter:
             _ptr(head, ctypes.c_int64),
             _ptr(l_new, ctypes.c_int64),
             _ptr(rev, ctypes.c_uint8),
-            _ptr(np.ascontiguousarray(cb.ev_flat), ctypes.c_uint32),
+            _ptr(np.ascontiguousarray(cb.ev_flat, np.uint32), ctypes.c_uint32),
             _ptr(ev_off, ctypes.c_int64),
             _ptr(n_ev, ctypes.c_int64),
             _ptr(genome_flat, ctypes.c_uint8),
@@ -494,7 +492,7 @@ class NativeEmitter:
             ctypes.byref(ew),
             ctypes.c_int32(1 if fastq else 0),
             ctypes.c_int32(1 if write_errors else 0),
-            ctypes.c_int32(n_threads),
+            ctypes.c_int32(EMIT_THREADS),
         )
         if rc != 0:
             raise RuntimeError(f"emit_batch_flat failed rc={rc}")
@@ -515,7 +513,6 @@ class NativeEmitter:
         genome_flat: np.ndarray,
         fastq: bool,
         write_errors: bool,
-        n_threads: int = 0,
         qual_table=None,  # (breaks [5, K] f32, vals [5, K] i32), required for fastq
     ):
         """Format a meta-only batch: read bytes (and FASTQ qualities) are
@@ -565,8 +562,6 @@ class NativeEmitter:
             self._fastx_buf = np.empty(int(ubf[k] * 1.3) + 64, np.uint8)
         if self._err_buf.size < ube[k] + 64:
             self._err_buf = np.empty(int(ube[k] * 1.3) + 64, np.uint8)
-        if n_threads <= 0:
-            n_threads = min(4, os.cpu_count() or 1)
 
         fw = ctypes.c_int64(0)
         ew = ctypes.c_int64(0)
@@ -585,7 +580,7 @@ class NativeEmitter:
             _ptr(head, ctypes.c_int64),
             _ptr(l_new, ctypes.c_int64),
             _ptr(rev, ctypes.c_uint8),
-            _ptr(np.ascontiguousarray(cb.ev_flat), ctypes.c_uint32),
+            _ptr(np.ascontiguousarray(cb.ev_flat, np.uint32), ctypes.c_uint32),
             _ptr(ev_off, ctypes.c_int64),
             _ptr(n_ev, ctypes.c_int64),
             _ptr(np.ascontiguousarray(n_ev_log, np.int64), ctypes.c_int64),
@@ -600,7 +595,7 @@ class NativeEmitter:
             _ptr(self._err_buf, ctypes.c_char),
             ctypes.byref(ew),
             ctypes.c_int32(1 if write_errors else 0),
-            ctypes.c_int32(n_threads),
+            ctypes.c_int32(EMIT_THREADS),
             ctypes.c_int32(1 if fastq else 0),
             ctypes.c_int64(rng_mod.SITE_QUAL),
             _ptr(q_breaks, ctypes.c_float),
@@ -629,7 +624,6 @@ class NativeEmitter:
         hp_mis_rate: float,
         l_cap: int,
         qual_table=None,
-        n_threads: int = 0,
         _grow_pad=None,
     ):
         """Format a meta-only -hp batch: suppression, pass-1 mutation, exact
@@ -687,8 +681,6 @@ class NativeEmitter:
             self._fastx_buf = np.empty(int(ubf[nl] * 1.3) + 64, np.uint8)
         if self._err_buf.size < ube[nl] + 64:
             self._err_buf = np.empty(int(ube[nl] * 1.3) + 64, np.uint8)
-        if n_threads <= 0:
-            n_threads = min(4, os.cpu_count() or 1)
 
         fw = ctypes.c_int64(0)
         ew = ctypes.c_int64(0)
@@ -708,7 +700,7 @@ class NativeEmitter:
             _ptr(head, ctypes.c_int64),
             _ptr(tail, ctypes.c_int64),
             _ptr(rev, ctypes.c_uint8),
-            _ptr(np.ascontiguousarray(cb.ev_flat), ctypes.c_uint32),
+            _ptr(np.ascontiguousarray(cb.ev_flat, np.uint32), ctypes.c_uint32),
             _ptr(ev_off, ctypes.c_int64),
             _ptr(n_ev, ctypes.c_int64),
             _ptr(genome_flat, ctypes.c_uint8),
@@ -728,14 +720,14 @@ class NativeEmitter:
             _ptr(q_breaks, ctypes.c_float),
             _ptr(q_vals, ctypes.c_int32),
             ctypes.c_int64(qK),
-            ctypes.c_int32(n_threads),
+            ctypes.c_int32(EMIT_THREADS),
         )
         if rc == 1:
             bigger = pad * 4
             return self.emit_recon_hp(
                 cb, lanes, names, g_off, genome_flat, fastq,
                 write_errors, k, hp_tab, hp_mis_rate, l_cap,
-                qual_table=qual_table, n_threads=n_threads, _grow_pad=bigger,
+                qual_table=qual_table, _grow_pad=bigger,
             )
         if rc != 0:
             raise RuntimeError(f"emit_batch_recon_hp failed rc={rc}")
@@ -753,7 +745,6 @@ class NativeEmitter:
         g_off: np.ndarray,  # [k] chromosome byte offsets
         genome_flat: np.ndarray,
         fastq: bool,
-        n_threads: int = 0,
         qual_table=None,
     ):
         """Reconstruct + format unaligned reads (presentation-space edit
@@ -788,8 +779,6 @@ class NativeEmitter:
         ubf[1:] = np.cumsum(name_lens + l_new * (2 if fastq else 1) + 16)
         if self._fastx_buf.size < ubf[k]:
             self._fastx_buf = np.empty(int(ubf[k] * 1.3) + 64, np.uint8)
-        if n_threads <= 0:
-            n_threads = min(4, os.cpu_count() or 1)
 
         fw = ctypes.c_int64(0)
         rc = self.lib.emit_batch_recon_unaligned(
@@ -802,7 +791,7 @@ class NativeEmitter:
             _ptr(l_new, ctypes.c_int64),
             _ptr(middle, ctypes.c_int64),
             _ptr(rev, ctypes.c_uint8),
-            _ptr(np.ascontiguousarray(cb.ev_flat), ctypes.c_uint32),
+            _ptr(np.ascontiguousarray(cb.ev_flat, np.uint32), ctypes.c_uint32),
             _ptr(ev_off, ctypes.c_int64),
             _ptr(n_steps, ctypes.c_int64),
             _ptr(genome_flat, ctypes.c_uint8),
@@ -815,7 +804,7 @@ class NativeEmitter:
             _ptr(q_breaks, ctypes.c_float),
             _ptr(q_vals, ctypes.c_int32),
             ctypes.c_int64(qK),
-            ctypes.c_int32(n_threads),
+            ctypes.c_int32(EMIT_THREADS),
         )
         if rc != 0:
             raise RuntimeError(f"emit_batch_recon_unaligned failed rc={rc}")
@@ -856,7 +845,6 @@ class NativeEmitter:
         fastq: bool,
         write_errors: bool,
         qual_table=None,
-        n_threads: int = 0,
     ):
         """Reconstruct + format chimeric reads (head|seg|gap|...|tail) from
         replayed part-keyed event streams."""
@@ -898,8 +886,6 @@ class NativeEmitter:
             self._fastx_buf = np.empty(int(ubf[k] * 1.3) + 64, np.uint8)
         if self._err_buf.size < ube[k] + 64:
             self._err_buf = np.empty(int(ube[k] * 1.3) + 64, np.uint8)
-        if n_threads <= 0:
-            n_threads = min(4, os.cpu_count() or 1)
 
         fw = ctypes.c_int64(0)
         ew = ctypes.c_int64(0)
@@ -946,7 +932,7 @@ class NativeEmitter:
             _ptr(q_breaks, ctypes.c_float),
             _ptr(q_vals, ctypes.c_int32),
             ctypes.c_int64(qK),
-            ctypes.c_int32(n_threads),
+            ctypes.c_int32(EMIT_THREADS),
         )
         if rc != 0:
             raise RuntimeError(f"emit_chimeric_recon failed rc={rc}")
@@ -982,7 +968,6 @@ class NativeEmitter:
         uracil: bool,
         write_errors: bool,
         qual_table=None,
-        n_threads: int = 0,
     ):
         """Reconstruct + format transcriptome reads (head | middle | polyA |
         tail) from replayed event streams."""
@@ -1016,8 +1001,6 @@ class NativeEmitter:
             self._fastx_buf = np.empty(int(ubf[k] * 1.3) + 64, np.uint8)
         if self._err_buf.size < ube[k] + 64:
             self._err_buf = np.empty(int(ube[k] * 1.3) + 64, np.uint8)
-        if n_threads <= 0:
-            n_threads = min(4, os.cpu_count() or 1)
 
         fw = ctypes.c_int64(0)
         ew = ctypes.c_int64(0)
@@ -1055,7 +1038,7 @@ class NativeEmitter:
             _ptr(q_breaks, ctypes.c_float),
             _ptr(q_vals, ctypes.c_int32),
             ctypes.c_int64(qK),
-            ctypes.c_int32(n_threads),
+            ctypes.c_int32(EMIT_THREADS),
         )
         if rc != 0:
             raise RuntimeError(f"emit_trx_recon failed rc={rc}")

@@ -1,7 +1,7 @@
 """Data-parallel slot sharding over ranks (one card each) with global read
 numbering."""
 
-from .mesh import HostGroup, shard_sim_batch, shard_sim_batch_numbered  # noqa: F401
+from .mesh import HostGroup, shard_sim_batch_numbered  # noqa: F401
 from .multihost import (  # noqa: F401
     MultiHostMetagenomeRunner,
     MultiHostModeRunner,

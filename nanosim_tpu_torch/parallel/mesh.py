@@ -120,16 +120,3 @@ def shard_sim_batch_numbered(batch_fn, group: HostGroup, count, reduce=None):
 
     return step
 
-
-def shard_sim_batch(batch_fn, group: HostGroup, count):
-    """Like shard_sim_batch_numbered, but the step returns only (this rank's
-    shard output, total accepted over the ranks): the JAX package's
-    `shard_sim_batch`, kept for its name; the runners number their reads
-    and use shard_sim_batch_numbered."""
-    numbered = shard_sim_batch_numbered(batch_fn, group, count)
-
-    def step(slots, *lane_args):
-        out, _, total = numbered(slots, *lane_args)
-        return out, total
-
-    return step

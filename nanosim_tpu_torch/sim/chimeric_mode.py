@@ -46,7 +46,8 @@ from . import extract
 from .bundles import SimTables, build_tables, plan_event_budget, plan_ht_capacity, plan_ref_capacity
 from .compact import event_checksum as _ev_checksum  # the host replay recomputes it per lane
 from .genome_mode import (_first_valid, _kde_draw, check_circular, device_of, draw_ht,
-                          lognormal_len, run_prefetched, want_recon)
+                          lognormal_len, run_prefetched)
+from .route import want_recon
 from .unaligned_mode import QCLASS_UNMAPPED
 
 _I32 = torch.int32
@@ -788,7 +789,8 @@ class ChimericGenomeSimulator:
         The route is never changed quietly: without the native library the
         reconstruction route raises."""
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
-        recon = self.kmer_bias is None and want_recon(self.kw["circular_dna"])
+        recon = want_recon("chimeric", circular_dna=self.kw["circular_dna"],
+                           hp=self.kmer_bias is not None)
         if not recon:
             fn = self.batch_fn()
 

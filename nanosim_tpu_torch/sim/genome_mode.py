@@ -47,6 +47,7 @@ from . import extract
 from .bundles import (FULL_EVENT_SLACK, SimTables, build_tables, estimate_mean_aligned,
                       estimate_mean_match, plan_event_budget, plan_ht_capacity,
                       plan_ref_capacity)
+from .route import want_recon
 
 
 class BatchOut(NamedTuple):
@@ -87,15 +88,6 @@ def device_of(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' was requested but no CUDA card is available")
     return dev
-
-
-def want_recon(circular_dna: bool) -> bool:
-    """Whether a pass runs the meta-only program with host reconstruction:
-    linear DNA unless NANOSIM_TPU_RECON=0 (the reconstruction covers linear
-    DNA only; everything else runs the read-emitting program).  Homopolymer
-    mode reconstructs too: a simulator with kmer_bias always holds the hp
-    tables the host needs (its constructor refuses a profile without them)."""
-    return not circular_dna and os.environ.get("NANOSIM_TPU_RECON", "1") != "0"
 
 
 def check_circular(genome, circular_dna: bool) -> None:
@@ -405,29 +397,25 @@ def genome_batch(
 
 class OverflowRescueWriter:
     """Writer shim: lanes whose walk overflowed the lean event budget
-    (capacity_overflow) are re-run through the run's own program (meta-only
-    or read-emitting, `emit_reads`) at the full budget and spliced back IN
-    SLOT ORDER before emission, so the lean budget is invisible in the
-    output.  On the host-reconstruction route the rescued lanes are
-    reconstructed like every other lane (the recon design makes that the same
-    bytes the read-emitting program would give).  In homopolymer mode the
-    rescue always materializes on the device (emit_reads=True on both
-    routes): that program's run table cannot overflow.
+    (capacity_overflow) are re-run at the full budget through the run's own
+    program (meta-only, or read-emitting when its fetcher moves the reads)
+    and spliced back IN SLOT ORDER before emission, so the lean budget is
+    invisible in the output.  On the host-reconstruction route the rescued
+    lanes are reconstructed like every other lane (the recon design makes
+    that the same bytes the read-emitting program would give).  In homopolymer mode the
+    rescue always materializes on the device (its fetcher moves the reads on
+    both routes): that program's run table cannot overflow.
     """
 
     RESCUE_BATCH = 64
 
-    def __init__(self, sim, writer, base_key, make_fetcher, emit_reads: bool):
+    def __init__(self, sim, writer, base_key, make_fetcher):
         self.sim = sim
         self.inner = writer
         self.base = base_key
         self.make_fetcher = make_fetcher  # () -> fresh fetcher for rescue runs
-        self.emit_reads = emit_reads
         self._fn = None
         self._fetcher = None
-        inner_enqueue = getattr(writer, "enqueue_task", None)
-        if inner_enqueue is not None:
-            self.enqueue_task = inner_enqueue
 
     def _rescue(self, slots):
         """Run overflow slots through the full-budget program.
@@ -436,8 +424,8 @@ class OverflowRescueWriter:
         """
         sim = self.sim
         if self._fn is None:
-            self._fn = sim.batch_fn(full_events=True, emit_reads=self.emit_reads)
             self._fetcher = self.make_fetcher()
+            self._fn = sim.batch_fn(full_events=True, emit_reads=self._fetcher.with_reads)
         out = {}
         B = self.RESCUE_BATCH
         for i in range(0, len(slots), B):
@@ -538,17 +526,16 @@ def run_prefetched(make_batch, batch_size: int, quota: int, writer, sim,
             accepted += writer.write_batch(sim, pending, accepted, quota)
         report_progress(prev, accepted)
         if state is not None:
-            state.checkpoint(writer, slot_start - batch_size * len(q), accepted)
+            state.checkpoint(slot_start - batch_size * len(q), accepted)
     return accepted
 
 
 class ResumeState:
     """Batch-granular (slot cursor, accepted count) checkpointing.
 
-    The state on disk never runs AHEAD of the output files: with a
-    synchronous writer it is written right after the batch's emission; with
-    an AsyncBatchWriter the write is enqueued BEHIND the batch's emission on
-    the same ordered worker queue.
+    The state on disk never runs AHEAD of the output files: the writers emit
+    synchronously, and the state is written right after the batch's
+    emission.
     """
 
     def __init__(self, path: str):
@@ -563,20 +550,13 @@ class ResumeState:
             self.slot_start = int(d["slot_start"])
             self.accepted = int(d["accepted"])
 
-    def _write(self, slot_start: int, accepted: int):
+    def checkpoint(self, slot_start: int, accepted: int):
         import json
 
         tmp = self.path + ".tmp"
         with open(tmp, "w") as f:
             json.dump({"slot_start": slot_start, "accepted": accepted}, f)
         os.replace(tmp, self.path)
-
-    def checkpoint(self, writer, slot_start: int, accepted: int):
-        enqueue = getattr(writer, "enqueue_task", None)
-        if enqueue is not None:
-            enqueue(lambda: self._write(slot_start, accepted))
-        else:
-            self._write(slot_start, accepted)
 
 
 class GenomeSimulator:
@@ -590,8 +570,7 @@ class GenomeSimulator:
     also with `-hp`) on both routes.  The port runs one length bucket: the
     JAX package's opt-in bucketed schedule writes the same files as its flat
     one, and a port of it ran 5x slower on an H100 with 3x the device
-    memory (PERF.md, Findings), so `run(..., bucketed=True)` and
-    NANOSIM_TPU_BUCKETED=1 run the flat schedule here."""
+    memory (PERF.md, Findings), so the port runs the flat schedule only."""
 
     def __init__(
         self,
@@ -661,12 +640,13 @@ class GenomeSimulator:
         )
 
     def _fetchers(self, seed: int):
-        """(recon, hp, make_primary, make_rescue): the route of a run and the
-        makers of its batch fetcher and of its overflow rescue's fetcher."""
+        """(make_primary, make_rescue): the makers of a run's batch fetcher
+        and of its overflow rescue's fetcher, on the run's route."""
         from ..io.native import PerfectReplayer, WalkReplayer
         from .output import CompactFetcher
 
-        recon = want_recon(self.circular_dna)
+        hp = self.kmer_bias is not None and not self.perfect
+        recon = want_recon("genome", circular_dna=self.circular_dna, hp=hp)
         est_bases = estimate_mean_aligned(self.profile) * 1.1 + 64
         est_events = est_bases / (estimate_mean_match(self.profile) + 1.0)
         # the replayed walk gives the host the events: on the recon route
@@ -679,13 +659,10 @@ class GenomeSimulator:
             e_guard=plan_event_budget(self.profile, self.l_cap, slack=FULL_EVENT_SLACK),
         )
 
-        hp = self.kmer_bias is not None and not self.perfect
-
-        def make_fetcher(lazy_replay=False):
+        def make_fetcher():
             return CompactFetcher(self.batch, est_events, replayer,
                                   recon_info=(seed, rng.STREAM_ALIGNED, self.ht_cap),
-                                  lazy_replay=lazy_replay, with_reads=not recon,
-                                  fastq=self.fastq, est_bases=est_bases)
+                                  with_reads=not recon, fastq=self.fastq, est_bases=est_bases)
 
         def make_hp_fetcher():
             # -hp without reconstruction: the device-materialized read, the
@@ -694,9 +671,8 @@ class GenomeSimulator:
             return CompactFetcher(self.batch, est_events, None, with_reads=True,
                                   fastq=self.fastq, est_bases=est_bases, with_prehp=True)
 
-        primary = (make_hp_fetcher if hp and not recon
-                   else functools.partial(make_fetcher, lazy_replay=True))
-        return recon, hp, primary, make_hp_fetcher if hp else make_fetcher
+        primary = make_hp_fetcher if hp and not recon else make_fetcher
+        return primary, make_hp_fetcher if hp else make_fetcher
 
     def dispatcher(self, seed: int, full_events: bool = False, fetcher=None):
         """The batch entry of a run: ``dispatch(slots)`` queues the run's
@@ -706,8 +682,9 @@ class GenomeSimulator:
         lanes need no rescue (rescued lanes could not be spliced into the
         sharded numbering)."""
         if fetcher is None:
-            fetcher = self._fetchers(seed)[2]()
-        fn = self.batch_fn(full_events=full_events, emit_reads=not want_recon(self.circular_dna))
+            fetcher = self._fetchers(seed)[0]()
+        # the program emits reads exactly when the route's fetcher moves them
+        fn = self.batch_fn(full_events=full_events, emit_reads=fetcher.with_reads)
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
 
         def dispatch(slots):
@@ -720,7 +697,7 @@ class GenomeSimulator:
         return dispatch
 
     def run(self, n_reads: int, writer, seed: int = 0, max_batches: Optional[int] = None,
-            resume_state: Optional[str] = None, bucketed: Optional[bool] = None):
+            resume_state: Optional[str] = None):
         """Simulate n_reads aligned reads into `writer`.
 
         Linear DNA runs the meta-only program and reconstructs the reads on
@@ -729,15 +706,12 @@ class GenomeSimulator:
         Homopolymer mode runs on both; its overflow rescue always goes
         through the device-materialized program.
 
-        bucketed is accepted for the JAX package's signature and changes
-        nothing: its bucketed schedule writes the flat schedule's files.
-
         resume_state: path to a (slot cursor, accepted) checkpoint file; if
         it exists the run continues from it (callers must open the output
         files in append mode), and it is updated after every batch."""
-        recon, hp, primary, rescue = self._fetchers(seed)
+        primary, rescue = self._fetchers(seed)
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
-        wrapped = OverflowRescueWriter(self, writer, base, rescue, emit_reads=hp or not recon)
+        wrapped = OverflowRescueWriter(self, writer, base, rescue)
         dispatch = self.dispatcher(seed, fetcher=primary())
 
         def make_batch(slot_start):

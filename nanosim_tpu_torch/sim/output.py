@@ -268,7 +268,7 @@ class GenomeBatchWriter:
         host-side."""
         fin = getattr(cb, "finish", None)
         if fin is not None:
-            fin()  # lazy walk replay (idempotent), in the emission worker
+            fin()  # the batch's walk replay (idempotent)
         g = sim.genome_host
         names = self._lane_names(sim, cb, lanes, accepted_so_far)
         lanes = np.asarray(lanes, np.int64)
@@ -306,23 +306,6 @@ class GenomeBatchWriter:
             )
             if hp and with_events:
                 err_mv = self._hp_log_bytes(sim, cb, lanes, names)
-        io = getattr(self, "io_pool", None)
-        if io is not None:
-            # hand the composed bytes to the io stage (copies out of the
-            # emitter's reused buffers; the file write then overlaps the next
-            # emit)
-            fdata = bytes(fastx_mv)
-            edata = bytes(err_mv) if with_events else None
-
-            def do_io(fdata=fdata, edata=edata):
-                with tracing.span("emit.write"):
-                    self.fastx.flush()
-                    self.fastx.f.write(fdata)
-                    if edata is not None:
-                        self.error_log.write_bytes(edata)
-
-            io.submit(do_io)
-            return len(lanes)
         with tracing.span("emit.write"):
             self.fastx.flush()
             self.fastx.f.write(fastx_mv)
@@ -403,8 +386,8 @@ class CompactFetcher:
     LOCKED_MARGIN = 1.06
 
     def __init__(self, batch: int, est_events: float, replayer, recon_info=None,
-                 lazy_replay: bool = False, with_reads: bool = False, fastq: bool = False,
-                 est_bases: float = 0.0, with_prehp: bool = False, pack_reads: bool = True):
+                 with_reads: bool = False, fastq: bool = False, est_bases: float = 0.0,
+                 with_prehp: bool = False, pack_reads: bool = True):
         from . import compact as _c
 
         if replayer is not None and not replayer.available:
@@ -423,10 +406,6 @@ class CompactFetcher:
         # reconstruction regenerates FASTQ qualities host-side too, so the
         # qual stream only crosses the link when the read bytes do
         self.transfer_quals = fastq and with_reads
-        # lazy_replay: defer the host walk replay from the fetch (critical
-        # path of the accept loop) to an idempotent cb.finish() the emission
-        # worker calls — the replay's CPU then overlaps the next batch
-        self.lazy_replay = lazy_replay
         self._locked = not with_reads  # meta-only buffers have nothing to size
         ch = _c.CHUNK
         per_byte = 4.0 if pack_reads else 1.0
@@ -506,17 +485,18 @@ class CompactFetcher:
             cb.recon = self.recon_info
         if self.replayer is None:
             return cb
-        if self.lazy_replay:
-            done = []
+        # the walk replay runs when the writer emits the batch (an idempotent
+        # cb.finish()), so its time is emit time, not fetch time; until then
+        # the batch holds no events
+        cb.ev_flat = None
+        done = []
 
-            def finish(fetcher=self, handle=h, batch=cb):
-                if not done:
-                    fetcher._replay_events(handle, batch)
-                    done.append(True)
+        def finish(fetcher=self, handle=h, batch=cb):
+            if not done:
+                fetcher._replay_events(handle, batch)
+                done.append(True)
 
-            cb.finish = finish
-        else:
-            self._replay_events(h, cb)
+        cb.finish = finish
         return cb
 
     @tracing.traced("emit.replay")
@@ -554,9 +534,8 @@ class CompactFetcher:
 
 
 class _OrderedIO:
-    """Single-thread ordered file-write stage (the second pipeline stage
-    behind the emit worker): composing the batch's bytes and writing them to
-    the filesystem then overlap batch-to-batch."""
+    """Single-thread ordered task stage: the metagenome's deferred emits run
+    on it in submission order, overlapping the next batch's dispatch."""
 
     def __init__(self, depth: int = 4):
         import queue
@@ -594,92 +573,6 @@ class _OrderedIO:
         self.drain()
         self._q.put(None)
         self._t.join()
-
-
-class AsyncBatchWriter:
-    """Pipelined wrapper around a batch writer.
-
-    `write_batch` fetches the batch (device->host transfer) and counts the
-    accepted lanes synchronously — the accept loop needs the count to track
-    its quota — but hands the expensive formatting + file IO to a single
-    worker thread (the C++ emitter and file writes run outside the GIL, so
-    they overlap the next batch's transfers).  Queue depth is bounded so
-    host memory stays flat; writes happen in submission order, keeping the
-    output byte-identical to the synchronous path.
-
-    A second `_OrderedIO` stage takes the file writes off the emit worker
-    (writers that support it submit their composed bytes to `io_pool`), so
-    walk replay + emission overlap the previous batch's first-touch page
-    faults — the dominant host cost on memory-throttled VMs.
-    """
-
-    def __init__(self, inner, depth: int = 2):
-        import queue
-        import threading
-
-        self.inner = inner
-        self.error_log = getattr(inner, "error_log", None)
-        self._q = queue.Queue(maxsize=depth)
-        self._exc = None
-        self._io = _OrderedIO()
-        if hasattr(inner, "_write_flat"):
-            inner.io_pool = self._io
-        self._t = threading.Thread(target=self._worker, daemon=True)
-        self._t.start()
-
-    def enqueue_task(self, fn):
-        """Run `fn` AFTER all previously queued writes have reached the
-        FILES (resume-state checkpoints must not outrun them): enqueue a
-        forwarding task so it lands on the io stage behind this batch's
-        writes."""
-        self._q.put(("task", lambda: self._io.submit(fn)))
-
-    def _worker(self):
-        while True:
-            item = self._q.get()
-            if item is None:
-                return
-            try:
-                if self._exc is None:
-                    if item[0] == "task":
-                        item[1]()
-                    else:
-                        _, sim, d, lanes, start = item
-                        self.inner.write_run(sim, d, lanes, start)
-            except BaseException as e:  # surfaced on the producer side
-                self._exc = e
-            finally:
-                self._q.task_done()
-
-    def write_batch(self, sim, out, accepted_so_far: int, quota: int) -> int:
-        if self._exc is not None:
-            raise self._exc
-        d = out.fetch()
-        lanes = np.nonzero(d["valid"])[0][: quota - accepted_so_far]
-        if len(lanes):
-            self._q.put(("run", sim, d, lanes, accepted_so_far))
-        return len(lanes)
-
-    def write_run(self, sim, d, lanes, accepted_so_far: int) -> int:
-        if self._exc is not None:
-            raise self._exc
-        if len(lanes):
-            self._q.put(("run", sim, d, lanes, accepted_so_far))
-        return len(lanes)
-
-    def drain(self):
-        self._q.join()
-        self._io.drain()
-        if self._exc is not None:
-            raise self._exc
-
-    def close(self):
-        self.drain()
-        self._q.put(None)
-        self._t.join()
-        self._io.close()
-        if getattr(self.inner, "io_pool", None) is self._io:
-            self.inner.io_pool = None
 
 
 def merge_files(out_path: str, parts, header: str = ""):

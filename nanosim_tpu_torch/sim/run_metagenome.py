@@ -41,7 +41,8 @@ from ..profiles import profile as profile_mod
 from . import extract, output
 from .bundles import build_tables, plan_event_budget, plan_ht_capacity, plan_ref_capacity
 from .chimeric_mode import ChimericReconHandle, chimeric_batch, pack_chimeric_meta
-from .genome_mode import _first_valid, _kde_draw, device_of, want_recon
+from .genome_mode import _first_valid, _kde_draw, device_of
+from .route import want_recon
 
 
 def _log(msg):
@@ -355,8 +356,7 @@ class MetagenomeSimulator:
         The route is never changed quietly: without the native library the
         reconstruction route raises."""
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
-        recon = self.kmer_bias is None and want_recon(False)
-        if not recon:
+        if not want_recon("metagenome", hp=self.kmer_bias is not None):
             fn = self.batch_fn()
 
             def dispatch(slots, species):
@@ -397,7 +397,6 @@ class MetagenomeSimulator:
         """Simulate n_reads aligned reads into `writer` (a ChimericBatchWriter
         with the metagenome hooks), on the routes of `dispatcher`."""
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
-        recon = self.kmer_bias is None and want_recon(False)
         dispatch = self.dispatcher(seed)
         rng_py = np.random.default_rng(np.random.SeedSequence([seed, 0xA55]))
         accepted = 0
@@ -410,7 +409,7 @@ class MetagenomeSimulator:
             rng_py.bit_generator.state = state.rng_state
         writer.species_bases = self.current_bases
         batches = 0
-        can_pipeline = recon and hasattr(writer, "prepare_recon_chimeric")
+        can_pipeline = hasattr(writer, "prepare_recon_chimeric")
 
         # Pipelined loop (recon path): per batch, the only SEQUENTIAL state
         # is the species-quota feedback, which needs just the meta rows —
@@ -424,8 +423,9 @@ class MetagenomeSimulator:
         pending = None  # (handle, prepared, checkpoint_snapshot)
         # the deferred emits run on a single ordered worker so the main
         # thread never blocks on throttled file writes at all; batch order
-        # (and therefore output bytes) is preserved by the queue
-        emit_io = output._OrderedIO(depth=2) if can_pipeline else None
+        # (and therefore output bytes) is preserved by the queue; the
+        # dispatcher's route shows in its handles
+        emit_io = None
 
         def flush_pending():
             nonlocal pending
@@ -459,8 +459,10 @@ class MetagenomeSimulator:
             out = dispatch(slots, species)
             slot_start += self.batch
             pa = self._phase_a_dispatch(base, self._slots(slot_start))
-            if can_pipeline:
+            if can_pipeline and isinstance(out, ChimericReconHandle):
                 # previous batch's emit overlaps this batch's device program
+                if emit_io is None:
+                    emit_io = output._OrderedIO(depth=2)
                 flush_pending()
                 prep = writer.prepare_recon_chimeric(self, out, accepted, n_reads)
                 prev = accepted

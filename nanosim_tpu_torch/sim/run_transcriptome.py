@@ -30,6 +30,7 @@ from ..profiles import profile as profile_mod
 from . import extract, output
 from .bundles import build_tables, plan_event_budget, plan_ht_capacity, plan_ref_capacity
 from .genome_mode import ResumeState, device_of, run_prefetched
+from .route import want_recon
 from .transcriptome_mode import TrxReconHandle, pack_trx_meta, transcriptome_batch
 
 POLYA_SCALE = {"albacore": 2.409858743694814, "guppy": 4.168299657168961}
@@ -406,7 +407,7 @@ class TranscriptomeSimulator:
         `-hp` or NANOSIM_TPU_RECON=0 the read-emitting program's TrxBatchOut.
         A multi-host rank calls it on its own slot shard."""
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
-        recon = self.kmer_bias is None and os.environ.get("NANOSIM_TPU_RECON", "1") != "0"
+        recon = want_recon("transcriptome", hp=self.kmer_bias is not None)
         if not recon:
             fn = self.batch_fn()
 

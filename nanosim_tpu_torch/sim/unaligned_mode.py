@@ -28,8 +28,8 @@ from .. import tracing
 from ..ops import apply_errors, error_walk, rng, seqops, xla_math
 from . import extract
 from .bundles import SimTables, build_tables
-from .genome_mode import (BatchOut, _kde_draw, check_circular, device_of, lognormal_len,
-                          want_recon)
+from .genome_mode import BatchOut, _kde_draw, check_circular, device_of, lognormal_len
+from .route import want_recon
 
 QCLASS_UNMAPPED = 4
 
@@ -277,7 +277,7 @@ class UnalignedSimulator:
         from ..io.native import UnalignedWalkReplayer
         from .output import CompactFetcher
 
-        recon = want_recon(self.circular_dna) and not self.uracil
+        recon = want_recon("unaligned", circular_dna=self.circular_dna, direct_rna=self.uracil)
         base = rng.base_key(seed, rng.STREAM_UNALIGNED, device=self.device)
         # without reconstruction the host needs no events (no error log)
         replayer = UnalignedWalkReplayer(
@@ -287,8 +287,7 @@ class UnalignedSimulator:
         est_bases = float(np.mean(self.profile.kde_unaligned.data)) * 1.2 + 64
         fetcher = CompactFetcher(self.batch, est_bases / 1.2, replayer,
                                  recon_info=(seed, rng.STREAM_UNALIGNED, 0),
-                                 lazy_replay=True, with_reads=not recon,
-                                 fastq=self.fastq, est_bases=est_bases,
+                                 with_reads=not recon, fastq=self.fastq, est_bases=est_bases,
                                  pack_reads=not self.uracil)
         fn = self.batch_fn(emit_reads=not recon)
 

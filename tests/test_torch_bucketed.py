@@ -4,8 +4,8 @@ for byte, on the CPU.
 The JAX package's schedule (`GenomeSimulator.run(..., bucketed=True)`,
 NANOSIM_TPU_BUCKETED=1) routes each slot by its drawn length to a small or
 the full bucket and merges the accepted lanes in slot order, so it writes
-the flat schedule's files.  The port runs the flat schedule for both
-switches: its files must equal the JAX package's bucketed files.  The
+the flat schedule's files.  The port has the flat schedule only: its files
+must equal the JAX package's bucketed files.  The
 heavy-tailed fixture is tests/test_genome_sim.py's (two buckets); the default
 one is tests/test_torch_genome.py's.
 """
@@ -96,7 +96,7 @@ CASES = {
 @pytest.mark.parametrize("case", list(CASES))
 def test_bucketed_equals_jax_and_flat(heavy, monkeypatch, case):
     """Two buckets in the JAX package: its bucketed files equal the port's
-    run with bucketed=True, which is the flat schedule."""
+    run, which is the flat schedule."""
     kw, env = CASES[case]
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -105,7 +105,7 @@ def test_bucketed_equals_jax_and_flat(heavy, monkeypatch, case):
     assert len(js.plan_buckets()) == 2
     a, b = (os.path.join(d, f"{case}_{t}") for t in ("jax", "torch"))
     tout.RUN_STATS.reset()
-    assert _run(js, jout, a, bucketed=True) == _run(ts, tout, b, bucketed=True) == N
+    assert _run(js, jout, a, bucketed=True) == _run(ts, tout, b) == N
     assert tout.RUN_STATS.checksum_fallback_lanes == 0
     _assert_same(a, b)
 

@@ -244,6 +244,7 @@ def test_native_hp_emitter_matches_numpy_spec(model):
                                                  torch.from_numpy(slots)))
     h.slots = slots
     cb = h.fetch()
+    cb.finish()  # the walk replay, which a writer runs when it emits
     lanes = np.nonzero(cb.valid & ~cb.cap_over)[0]
     assert len(lanes) > 10
     names = [f"r{b}" for b in lanes]
@@ -413,7 +414,7 @@ def _device_hp_batch(model):
 
 @pytest.mark.parametrize("n_threads", [1, 4])
 @pytest.mark.parametrize("batch", ["synthetic", "device"])
-def test_native_hp_log_matches_python_spec(model, batch, n_threads):
+def test_native_hp_log_matches_python_spec(model, batch, n_threads, monkeypatch):
     """The C++ composer of a device-materialized batch's `-hp` log
     (NativeEmitter.prehp_log) writes the Python spec's bytes, and counts the
     lanes that wrote a row, whatever the thread count."""
@@ -422,7 +423,8 @@ def test_native_hp_log_matches_python_spec(model, batch, n_threads):
     want, want_logged = _spec_hp_log(cb, lanes, names, g)
     emitter = native.NativeEmitter()
     emitter._err_buf = np.empty(16, np.uint8)  # the buffer grows to the rows' bound
-    got, logged = emitter.prehp_log(cb, lanes, names, g, n_threads=n_threads)
+    monkeypatch.setattr(native, "EMIT_THREADS", n_threads)
+    got, logged = emitter.prehp_log(cb, lanes, names, g)
     assert bytes(got) == want
     assert logged == want_logged > 10
     # not vacuous: events were dropped from the log (suppressed or overwritten)

@@ -594,7 +594,7 @@ def test_batch_must_divide_over_the_hosts(fx):
 
 
 def test_shard_steps_number_like_one_host():
-    """shard_sim_batch_numbered / shard_sim_batch on a toy batch function:
+    """shard_sim_batch_numbered on a toy batch function:
     every rank's shard, the exclusive prefix of the counts and the total
     (with a summed per-shard vector), and each shard computed as its own
     call of B/H slots."""
@@ -625,10 +625,6 @@ def test_shard_steps_number_like_one_host():
             np.testing.assert_array_equal(out.slots, slots[h * s:(h + 1) * s])
             assert offsets[h] == want[: h * s].sum() and total == want.sum()
             np.testing.assert_array_equal(summed, [want.sum(), 24])
-            out2, total2 = parallel.shard_sim_batch(batch_fn, parallel.HostGroup(H, h), count)(
-                slots, weights)
-            np.testing.assert_array_equal(out2.slots, out.slots)
-            assert total2 == total
 
 
 def test_init_distributed_is_a_no_op_for_one_process():

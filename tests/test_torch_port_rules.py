@@ -1,6 +1,6 @@
 """Rules of the PyTorch port: it imports neither JAX, the JAX package nor the
-bench scripts, and its entry points run on the card unless the caller asks for
-the CPU."""
+bench scripts, its entry points run on the card unless the caller asks for
+the CPU, and one function picks the route of every mode's pass."""
 
 import os
 import re
@@ -455,3 +455,38 @@ def test_cli_accepts_metagenome(tmp_path, extra):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         cli.main(["metagenome", "-gl", glist, "-a", abun, "-c", prefix,
                   "-o", str(tmp_path / "out"), *extra])
+
+
+# mode -> whether a pass runs Route A (meta-only program, host
+# reconstruction) for (circular_dna, hp, direct_rna), NANOSIM_TPU_RECON unset
+ROUTE_A = {
+    "genome": lambda circular, hp, rna: not circular,
+    "chimeric": lambda circular, hp, rna: not (circular or hp),
+    "metagenome": lambda circular, hp, rna: not hp,
+    "transcriptome": lambda circular, hp, rna: not hp,
+    "unaligned": lambda circular, hp, rna: not (circular or rna),
+}
+
+
+@pytest.mark.parametrize("recon_env", [None, "1", "0"], ids=["unset", "1", "0"])
+@pytest.mark.parametrize("mode", list(ROUTE_A))
+def test_route_table(monkeypatch, mode, recon_env):
+    """`want_recon`, the one place that picks a pass's route: linear DNA
+    reconstructs on the host (metagenome and transcriptome count as linear),
+    `-hp` only in genome mode, direct-RNA unaligned reads never, and
+    NANOSIM_TPU_RECON=0 sends every pass to the read-emitting program."""
+    import itertools
+
+    from nanosim_tpu_torch.sim.route import RECON_MODES, want_recon
+
+    assert set(RECON_MODES) == set(ROUTE_A)
+    if recon_env is None:
+        monkeypatch.delenv("NANOSIM_TPU_RECON", raising=False)
+    else:
+        monkeypatch.setenv("NANOSIM_TPU_RECON", recon_env)
+    for circular, hp, rna in itertools.product((False, True), repeat=3):
+        want = recon_env != "0" and ROUTE_A[mode](circular, hp, rna)
+        got = want_recon(mode, circular_dna=circular, hp=hp, direct_rna=rna)
+        assert got is want, (circular, hp, rna)
+    with pytest.raises(ValueError, match="unknown pass mode"):
+        want_recon(mode + "_x")
