@@ -7,7 +7,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. builds: csrc/walk.cu, csrc/walk_ablate.cu, csrc/gather.cu,
    csrc/assemble.cu, csrc/gather_window.cu and csrc/draw.cu with nvcc (sm_90a, one nvcc per source; the ptxas reports
    are printed, a reported register spill fails the run) and
-   native/fastwriter.cpp with g++, all started together;
+   the native writer (csrc/recon_emit.cpp, which includes
+   native/fastwriter.cpp) with g++, all started together;
 3. kernels from the bench configuration's tables (mean read 8,000, sd
    2,200, 2,000 KDE points).  The walks on the main path's first batch: the
    aligned walk at B=2,048 with the lean event budget (1,120) and at the
@@ -336,7 +337,7 @@ def phase_build():
     if errors:
         fail(f"build: {errors[0]}")
     if native.get_lib() is None:
-        fail("native/fastwriter.cpp did not build")
+        fail("the native writer (csrc/recon_emit.cpp, native/fastwriter.cpp) did not build")
     print(f"builds done in {time.time() - t0:.1f}s", flush=True)
     for lib in (walk_cuda.LIBRARY, walk_ablate.LIBRARY, gather_cuda.LIBRARY,
                 assemble_cuda.LIBRARY, gather_window.LIBRARY, draw_cuda.LIBRARY):

@@ -1,11 +1,13 @@
 """ctypes bridge to the C++ output formatters.
 
 Two libraries, each compiled with g++ on first use into this package's own
-build directory: the writer, native/fastwriter.cpp, read where it lies in the
-repository (it is shared with the JAX package and not copied), and this
-package's composer of the `-hp` ground-truth log, csrc/prehp_log.cpp.
-`get_lib` returns None if either fails to compile; the simulators then
-refuse to run (the host reconstruction and the `-hp` log need them).
+build directory.  The writer, csrc/recon_emit.cpp, includes the shared
+writer native/fastwriter.cpp where it lies in the repository (it is shared
+with the JAX package and not copied) and adds this package's emitters of
+Route A's reads; the other is this package's composer of the `-hp`
+ground-truth log, csrc/prehp_log.cpp.  `get_lib` returns None if either
+fails to compile; the simulators then refuse to run (the host reconstruction
+and the `-hp` log need them).
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ import numpy as np
 from .. import tracing
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "fastwriter.cpp")
+_SRC = os.path.join(_PKG_DIR, "csrc", "recon_emit.cpp")
+_SHARED_SRC = os.path.join(os.path.dirname(_PKG_DIR), "native", "fastwriter.cpp")
 _LOG_SRC = os.path.join(_PKG_DIR, "csrc", "prehp_log.cpp")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_LIB = os.path.join(_BUILD_DIR, "libfastwriter.so")
+_LIB = os.path.join(_BUILD_DIR, "librecon_emit.so")
 _LOG_LIB = os.path.join(_BUILD_DIR, "libprehp_log.so")
 
 _lib = None
@@ -49,9 +52,12 @@ _LOG_ARGTYPES = [
 ]
 
 
-def _build(src: str, lib: str) -> bool:
+def _build(src: str, lib: str, *included: str) -> bool:
+    """Compile `src` into `lib` unless `lib` is newer than it and than every
+    file it includes."""
     try:
-        if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+        if os.path.exists(lib) and all(os.path.getmtime(lib) >= os.path.getmtime(f)
+                                       for f in (src, *included)):
             return True
         os.makedirs(_BUILD_DIR, exist_ok=True)
         # per-process temporary: concurrent first uses (test workers) must
@@ -75,12 +81,14 @@ def get_lib():
     global _lib, _log_lib, _tried
     if _lib is None and not _tried:
         _tried = True
-        if _build(_SRC, _LIB) and _build(_LOG_SRC, _LOG_LIB):
+        if _build(_SRC, _LIB, _SHARED_SRC) and _build(_LOG_SRC, _LOG_LIB):
             lib = ctypes.CDLL(_LIB)
             for name in ("replay_walk_batch", "emit_batch_recon", "emit_batch_flat",
                          "replay_unaligned_walk_batch", "emit_batch_recon_unaligned",
                          "emit_batch_recon_hp", "emit_chimeric_recon",
-                         "emit_chimeric_batch", "emit_batch", "emit_trx_recon"):
+                         "emit_chimeric_batch", "emit_batch", "emit_trx_recon",
+                         "recon_emit_aligned", "recon_emit_unaligned", "recon_emit_chimeric",
+                         "recon_emit_qual_counts"):
                 getattr(lib, name).restype = ctypes.c_int64
             log_lib = ctypes.CDLL(_LOG_LIB)
             log_lib.compose_prehp_log.argtypes = _LOG_ARGTYPES
@@ -244,6 +252,14 @@ class UnalignedWalkReplayer:
 
 def _ptr(a, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _count_quals(fastq: bool, bases, steps) -> None:
+    """Count a csrc/recon_emit.cpp emitter's out-counters: the quality bytes
+    its lookup wrote, and the steps its walk took past a bucket's start."""
+    if fastq:
+        tracing.count("emit.qual.bases", bases.value)
+        tracing.count("emit.qual.walk_steps", steps.value)
 
 
 class NativeEmitter:
@@ -517,8 +533,10 @@ class NativeEmitter:
     ):
         """Format a meta-only batch: read bytes (and FASTQ qualities) are
         RECONSTRUCTED from (genome, replayed events, counter RNG) —
-        sim/reconstruct.py is the spec, native recon_range the
-        implementation."""
+        sim/reconstruct.py is the spec, csrc/recon_emit.cpp's aligned_range
+        the implementation.  Under a profiler a FASTQ batch counts
+        `emit.qual.bases` and `emit.qual.walk_steps` (so do the unaligned and
+        chimeric emitters)."""
         from ..ops import rng as rng_mod
 
         seed, stream, ht_cap = cb.recon
@@ -565,9 +583,10 @@ class NativeEmitter:
 
         fw = ctypes.c_int64(0)
         ew = ctypes.c_int64(0)
+        qb, ws = ctypes.c_int64(0), ctypes.c_int64(0)
         from ..sim.compact import CHUNK
 
-        rc = self.lib.emit_batch_recon(
+        rc = self.lib.recon_emit_aligned(
             ctypes.c_int64(seed), ctypes.c_int64(stream),
             ctypes.c_int64(rng_mod.SITE_IUPAC), ctypes.c_int64(rng_mod.SITE_MIS_BASE),
             ctypes.c_int64(rng_mod.SITE_HEAD_TAIL),
@@ -601,9 +620,11 @@ class NativeEmitter:
             _ptr(q_breaks, ctypes.c_float),
             _ptr(q_vals, ctypes.c_int32),
             ctypes.c_int64(qK),
+            ctypes.byref(qb), ctypes.byref(ws),
         )
         if rc != 0:
-            raise RuntimeError(f"emit_batch_recon failed rc={rc}")
+            raise RuntimeError(f"recon_emit_aligned failed rc={rc}")
+        _count_quals(fastq, qb, ws)
         return (
             memoryview(self._fastx_buf)[: fw.value],
             memoryview(self._err_buf)[: ew.value],
@@ -781,7 +802,8 @@ class NativeEmitter:
             self._fastx_buf = np.empty(int(ubf[k] * 1.3) + 64, np.uint8)
 
         fw = ctypes.c_int64(0)
-        rc = self.lib.emit_batch_recon_unaligned(
+        qb, ws = ctypes.c_int64(0), ctypes.c_int64(0)
+        rc = self.lib.recon_emit_unaligned(
             ctypes.c_int64(seed), ctypes.c_int64(stream),
             ctypes.c_int64(rng_mod.SITE_IUPAC), ctypes.c_int64(rng_mod.SITE_INS_BASE),
             ctypes.c_int64(rng_mod.SITE_QUAL), ctypes.c_int64(k),
@@ -805,9 +827,11 @@ class NativeEmitter:
             _ptr(q_vals, ctypes.c_int32),
             ctypes.c_int64(qK),
             ctypes.c_int32(EMIT_THREADS),
+            ctypes.byref(qb), ctypes.byref(ws),
         )
         if rc != 0:
-            raise RuntimeError(f"emit_batch_recon_unaligned failed rc={rc}")
+            raise RuntimeError(f"recon_emit_unaligned failed rc={rc}")
+        _count_quals(fastq, qb, ws)
         return memoryview(self._fastx_buf)[: fw.value]
 
     @tracing.traced("emit.format")
@@ -889,7 +913,8 @@ class NativeEmitter:
 
         fw = ctypes.c_int64(0)
         ew = ctypes.c_int64(0)
-        rc = self.lib.emit_chimeric_recon(
+        qb, ws = ctypes.c_int64(0), ctypes.c_int64(0)
+        rc = self.lib.recon_emit_chimeric(
             ctypes.c_int64(seed), ctypes.c_int64(stream),
             ctypes.c_int64(rng_mod.SITE_IUPAC), ctypes.c_int64(rng_mod.SITE_INS_BASE),
             ctypes.c_int64(rng_mod.SITE_HEAD_TAIL), ctypes.c_int64(rng_mod.SITE_QUAL),
@@ -933,9 +958,11 @@ class NativeEmitter:
             _ptr(q_vals, ctypes.c_int32),
             ctypes.c_int64(qK),
             ctypes.c_int32(EMIT_THREADS),
+            ctypes.byref(qb), ctypes.byref(ws),
         )
         if rc != 0:
-            raise RuntimeError(f"emit_chimeric_recon failed rc={rc}")
+            raise RuntimeError(f"recon_emit_chimeric failed rc={rc}")
+        _count_quals(fastq, qb, ws)
         return (
             memoryview(self._fastx_buf)[: fw.value],
             memoryview(self._err_buf)[: ew.value],

@@ -11,8 +11,10 @@ profiler and once under `torch.profiler` (CPU activity):
 * under the profiler every span of the path fires, each nested span lies
   inside its parent, one batch's dispatch, fetch and emit carry its first
   slot, `batches.fetched` counts the batches consumed, self times are not
-  negative and every row lies inside the job, and neither draw counter
-  (`rng.draw_launches`, `rng.plain_hashes_on_card`) appears on the CPU;
+  negative and every row lies inside the job, neither draw counter
+  (`rng.draw_launches`, `rng.plain_hashes_on_card`) appears on the CPU, and
+  the quality lookup's counters (`emit.qual.bases`, `emit.qual.walk_steps`)
+  appear in the host-reconstruction runs alone;
 * the files are the same bytes either way.
 
 A multi-rank run (two gloo ranks, one process each, each under its own
@@ -170,6 +172,25 @@ def test_hp_log_counts_the_lanes_it_logged(runs, traffic):
     with open(on + "_aligned_error_profile", "rb") as f:
         logged = {row.split(b"\t", 1)[0] for row in f.read().splitlines()[1:]}
     assert counts["emit.hp_log.lanes"] == len(logged) > 0
+
+
+@pytest.mark.parametrize("traffic", list(TRAFFICS))
+def test_quality_lookup_counts_route_a_fastq(runs, traffic):
+    """`emit.qual.bases` counts the quality bytes that Route A's emitters
+    (csrc/recon_emit.cpp) wrote through their lookup: in the linear and
+    chimeric runs, every quality byte of the aligned and unaligned files;
+    `emit.qual.walk_steps` appears beside it.  The circular runs take the
+    read-emitting program in every pass and count neither."""
+    on, _, counts = runs(traffic)[1:4]
+    if TRAFFICS[traffic][0]["dna"] == "circular":
+        assert "emit.qual.bases" not in counts and "emit.qual.walk_steps" not in counts
+        return
+    quality = 0
+    for suf in ("_aligned_reads.fastq", "_unaligned_reads.fastq"):
+        with open(on + suf, "rb") as f:
+            quality += sum(len(q) for q in f.read().split(b"\n")[3::4])
+    assert counts["emit.qual.bases"] == quality > 0
+    assert 0 <= counts["emit.qual.walk_steps"] < counts["emit.qual.bases"]
 
 
 @pytest.mark.parametrize("traffic", list(TRAFFICS))
