@@ -35,7 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..io.genome import MetagenomeSet
+from .. import tracing
+from ..io.genome import MetagenomeSet, PackedGenome
 from ..ops import rng, xla_math
 from ..profiles import profile as profile_mod
 from . import extract, output
@@ -159,7 +160,9 @@ def assign_species_batch(
 
     Walks reads in (segment-count desc, slot) order; first segments choose
     uniformly among species with remaining quota, later segments keep the
-    previous species with the inflated probability.
+    previous species with the inflated probability.  Counts the segments
+    assigned (`species.segments`) and the later segments that kept the
+    previous species (`species.kept_previous`).
     """
     B, S = m_ref.shape
     n_species = len(abun)
@@ -170,6 +173,7 @@ def assign_species_batch(
 
     order = sorted(range(B), key=lambda b: (-n_seg[b], b))
     species = np.zeros((B, S), np.int32)
+    kept_previous = 0
     for b in order:
         prev = -1
         for s in range(int(n_seg[b])):
@@ -186,6 +190,7 @@ def assign_species_batch(
                 p = rng_py.uniform(0, 100)
                 if abun_inflated is not None and p <= abun_inflated[prev] * 100 and quota[prev] > 0:
                     sp = prev
+                    kept_previous += 1
                 elif len(avail) > 0:
                     sp = int(avail[int(rng_py.random() * len(avail))])
                 else:
@@ -198,7 +203,33 @@ def assign_species_batch(
             species[b, s] = sp
             quota[sp] -= ln
             prev = sp
+    tracing.count("species.segments", int(np.sum(n_seg)))
+    tracing.count("species.kept_previous", kept_previous)
     return species
+
+
+def _wrap_tailed(g: PackedGenome, tail: int) -> PackedGenome:
+    """The host genome of the reconstruction route: `g` with each circular
+    chromosome followed by its first min(length, tail) bases.  The C++
+    emitters read a segment as flat[offsets[c] + pos:][:length]; with the
+    tail, a segment or gap that runs past a circular chromosome's origin
+    reads on into its first bases, as the device's gathers wrap.  `offsets`
+    are then the chromosomes' starts in the longer array (and its length
+    last); names, lengths and topology are `g`'s."""
+    if not g.circular.any():
+        return g
+    parts, starts = [], []
+    at = 0
+    for c in range(g.n_chrom):
+        seq = g.flat[g.offsets[c]:g.offsets[c + 1]]
+        starts.append(at)
+        parts.append(seq)
+        at += len(seq)
+        if g.circular[c]:
+            parts.append(seq[:tail])
+            at += min(len(seq), tail)
+    return PackedGenome(flat=np.concatenate(parts), names=g.names, lengths=g.lengths,
+                        offsets=np.array(starts + [at], np.int64), circular=g.circular)
 
 
 class MetagenomeSimulator:
@@ -226,7 +257,6 @@ class MetagenomeSimulator:
     ):
         self.device = device_of(device)
         self.mset = mset
-        self.genome_host = mset.packed
         self.profile = profile
         self.fastq = fastq
         self.chimeric = chimeric
@@ -245,7 +275,7 @@ class MetagenomeSimulator:
         )
         self.current_bases = np.zeros(len(mset.species_names), np.float64)
 
-        self.l_cap = plan_ref_capacity(profile, max_len, self.genome_host.max_chrom)
+        self.l_cap = plan_ref_capacity(profile, max_len, mset.packed.max_chrom)
         self.ht_cap = plan_ht_capacity(profile)
         if chimeric and profile.kde_gap is not None:
             gap_support = 10.0 ** (
@@ -255,6 +285,7 @@ class MetagenomeSimulator:
         else:
             self.gap_cap = 128
         self.gap_steps = -(-(int(self.gap_cap * 1.3) + 64) // 8) * 8
+        self.genome_host = _wrap_tailed(mset.packed, max(self.l_cap, self.gap_cap))
         self.l_out = self.l_cap * (2 if chimeric else 1) + self.gap_cap * 2 + self.ht_cap
         self.e_max = plan_event_budget(profile, self.l_cap, slack=2.5)
 
@@ -360,8 +391,9 @@ class MetagenomeSimulator:
             fn = self.batch_fn()
 
             def dispatch(slots, species):
-                return fn(base, torch.as_tensor(slots, device=self.device),
-                          species=torch.as_tensor(species, device=self.device))
+                with tracing.span("dispatch.program"):
+                    return fn(base, torch.as_tensor(slots, device=self.device),
+                              species=torch.as_tensor(species, device=self.device))
 
             return dispatch
 
@@ -386,8 +418,9 @@ class MetagenomeSimulator:
         fn_meta = self.batch_fn(emit_reads=False)
 
         def dispatch_recon(slots, species):
-            out = fn_meta(base, torch.as_tensor(slots, device=self.device),
-                          species=torch.as_tensor(species, device=self.device))
+            with tracing.span("dispatch.program"):
+                out = fn_meta(base, torch.as_tensor(slots, device=self.device),
+                              species=torch.as_tensor(species, device=self.device))
             return ChimericReconHandle(pack_chimeric_meta(out), slots, self, seed,
                                        species=species)
 
@@ -395,12 +428,24 @@ class MetagenomeSimulator:
 
     def run(self, n_reads, writer, seed=0, max_batches=None, resume_state=None):
         """Simulate n_reads aligned reads into `writer` (a ChimericBatchWriter
-        with the metagenome hooks), on the routes of `dispatcher`."""
+        with the metagenome hooks), on the routes of `dispatcher`.  The
+        species quotas start from zero bases unless a resume state is
+        loaded, so a run on a simulator that has run before packs as a
+        fresh one.
+
+        Spans: `dispatch` (the batch's first slot) around the species
+        assignment and the program's dispatch, inside it `species.lengths`
+        (the host waiting for phase A's segment counts and lengths) and
+        `species.assign` (the quota packing), and `emit.queue_wait` (the
+        loop blocked on the emit worker); `batches.dispatched` and the
+        loop's own `species.batches` count.  The dispatcher's program call
+        runs under `dispatch.program`, its pack under `dispatch.compact`."""
         base = rng.base_key(seed, rng.STREAM_ALIGNED, device=self.device)
         dispatch = self.dispatcher(seed)
         rng_py = np.random.default_rng(np.random.SeedSequence([seed, 0xA55]))
         accepted = 0
         slot_start = 0
+        self.current_bases = np.zeros(len(self.mset.species_names), np.float64)
         state = MetaResumeState(resume_state) if resume_state else None
         if state is not None and state.loaded:
             slot_start = state.slot_start
@@ -442,7 +487,8 @@ class MetagenomeSimulator:
                     state.write(*snap[0], snap[2], snap[3])
 
             if emit_io is not None:
-                emit_io.submit(do_emit)
+                with tracing.span("emit.queue_wait"):
+                    emit_io.submit(do_emit)
             else:
                 do_emit()
 
@@ -452,11 +498,16 @@ class MetagenomeSimulator:
                 break
             batches += 1
             slots = self._slots(slot_start)
-            n_seg, m_ref = self._phase_a_fetch(pa, self.batch)
-            species = assign_species_batch(
-                m_ref, n_seg, self.current_bases, self.abun, self.abun_inflated, rng_py
-            )
-            out = dispatch(slots, species)
+            with tracing.span("dispatch", slot_start):
+                with tracing.span("species.lengths"):
+                    n_seg, m_ref = self._phase_a_fetch(pa, self.batch)
+                with tracing.span("species.assign"):
+                    species = assign_species_batch(
+                        m_ref, n_seg, self.current_bases, self.abun, self.abun_inflated, rng_py
+                    )
+                out = dispatch(slots, species)
+                tracing.count("batches.dispatched")
+                tracing.count("species.batches")
             slot_start += self.batch
             pa = self._phase_a_dispatch(base, self._slots(slot_start))
             if can_pipeline and isinstance(out, ChimericReconHandle):

@@ -283,3 +283,101 @@ def test_multi_rank_run_records_the_exchange(inputs):
         for (_, s, e, depth), (_, ds, de, _) in zip(exchanges, dispatches):
             assert ds <= s <= e <= de and depth == 1
         assert any(r[0] == "emit" and r[3] == 0 for r in rows)
+
+
+# --- the metagenome's accept loop --------------------------------------------
+
+META_SPECIES = ("Escherichia coli", "Bacillus subtilis", "Saccharomyces cerevisiae")
+# the loop's spans, and those that its worker thread records in the replay and emit
+META_LOOP = {"dispatch", "dispatch.program", "dispatch.compact", "species.lengths",
+             "species.assign", "emit.queue_wait"}
+META_WORKER = {"emit.replay", "emit.names", "emit.format", "emit.write"}
+
+
+@pytest.fixture(scope="module")
+def meta_runs(inputs):
+    """A `simulate metagenome --chimeric --fastq` run with no profiler and
+    one under it, on three species (a circular bacterium, a linear one, a
+    yeast of three linear chromosomes): (untraced output, traced output,
+    rows, counts, self seconds, the segment counts the packing was given)."""
+    from nanosim_tpu_torch.sim import run_metagenome
+
+    d, prefix, _ = inputs
+    glist, dl, ab = (os.path.join(d, f) for f in ("meta_genomes.tsv", "meta_dna.tsv",
+                                                  "meta_abun.tsv"))
+    sizes = [[24000], [18000], [9000, 7000, 5000]]
+    with open(glist, "w") as g, open(dl, "w") as t, open(ab, "w") as a:
+        a.write(f"Species\t{N}\n")
+        for i, (sp, sz) in enumerate(zip(META_SPECIES, sizes)):
+            path = os.path.join(d, f"meta{i}.fa")
+            fixtures.make_reference_fasta(path, sz, seed=20 + i, name_prefix=f"m{i}chr")
+            g.write(f"{sp}\t{path}\n")
+            for c in range(len(sz)):
+                t.write(f"{sp}\tm{i}chr{c + 1}\t{'circular' if i == 0 else 'linear'}\n")
+            a.write(f"{sp}\t{[50, 30, 20][i]}\n")
+
+    def simulate(tag):
+        out = os.path.join(d, tag)
+        run_metagenome.simulate_metagenome(glist, ab, dl, prefix, out, chimeric=True,
+                                           fastq=True, seed=SEED, batch=BATCH, device="cpu")
+        return out
+
+    tracing.RECORDER.reset()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tracing, "_clock", _raise)
+        mp.setattr(tracing._prof, "record_function", _raise)
+        off = simulate("meta_off")
+    assert tracing.RECORDER.rows == [] and tracing.RECORDER.counts == {}
+    segments = []
+    assign = run_metagenome.assign_species_batch
+
+    def counting(m_ref, n_seg, *args):
+        segments.append(int(n_seg.sum()))
+        return assign(m_ref, n_seg, *args)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(run_metagenome, "assign_species_batch", counting)
+        with profile(activities=[ProfilerActivity.CPU]):
+            on = simulate("meta_on")
+    rec = tracing.RECORDER
+    return off, on, list(rec.rows), dict(rec.counts), rec.self_seconds(), segments
+
+
+def test_metagenome_no_profiler_no_rows(meta_runs):
+    """No clock read and no record_function with no profiler (checked in the
+    fixture); the traced run's files are the same bytes."""
+    off, on = meta_runs[:2]
+    for suf in FILES:
+        suf = "_sample0" + suf
+        with open(off + suf, "rb") as a, open(on + suf, "rb") as b:
+            assert a.read() == b.read(), suf
+
+
+def test_metagenome_loop_spans_and_counters(meta_runs):
+    """The loop's spans and the worker's replay and emit spans record;
+    `species.lengths`, `species.assign` and `dispatch.program` lie inside a
+    batch's `dispatch`, one each a batch the loop dispatched, which
+    `species.batches` counts (the unaligned pass counts only
+    `batches.dispatched`); `species.segments` counts every
+    segment the packing assigned, `species.kept_previous` the later segments
+    that stayed in their read's species."""
+    rows, counts, own, segments = meta_runs[2:6]
+    names = {r[0] for r in rows}
+    assert META_LOOP | META_WORKER <= names
+    assert min(own.values()) >= 0.0
+    n_batches = len(segments)
+    for span in ("species.lengths", "species.assign"):
+        inner = [r for r in rows if r[0] == span]
+        assert len(inner) == n_batches and all(r[3] == 1 for r in inner)
+    assert counts["species.batches"] == n_batches
+    loop = sorted((r for r in rows if r[0] == "dispatch" and r[4] is not None
+                   and any(s[0] == "species.assign" and r[1] <= s[1] <= s[2] <= r[2]
+                           for s in rows)), key=lambda r: r[1])
+    assert len(loop) == n_batches
+    assert [r[4] for r in loop] == [b * BATCH for b in range(n_batches)]
+    for r in loop:
+        inner = [s for s in rows if s[0] == "dispatch.program" and r[1] <= s[1] <= s[2] <= r[2]]
+        assert len(inner) == 1 and inner[0][3] == r[3] + 1
+    assert counts["batches.dispatched"] >= n_batches
+    assert counts["species.segments"] == sum(segments) > n_batches * BATCH
+    assert 0 < counts["species.kept_previous"] < counts["species.segments"] - n_batches * BATCH
